@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The file imports
+no JAX, so it runs on a machine that has only PyTorch; ``tests/conftest.py``
+imports JAX, so run it with::
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from mm_masking_tpu_torch.config import Config, ModelConfig
+from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
+from mm_masking_tpu_torch.ops.kernels import launch_counts, plain_versions, reset_launch_counts
+from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
+from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3, conv3x3_plain
+from mm_masking_tpu_torch.train import Trainer
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 96), (16, 32, 50), (64, 64, 40), (256, 128, 20)])
+def test_conv3x3_kernel_matches_plain(cuda, Ci, Co, H, dtype):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, Ci, H, H + 7)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((Co, Ci, 3, 3)) * 0.2).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(Co) * 0.1).astype(np.float32))
+    x, w, b = (t.to(cuda, dtype) for t in (x, w, b))
+    for relu in (False, True):
+        got = conv3x3(x, w, b, relu)
+        want = conv3x3_plain(x, w, b, relu)
+        scale = max(1.0, want.float().abs().max().item())
+        # f32: summation order only; bf16: one rounding of the output.
+        tol = 1e-4 * scale if dtype == torch.float32 else 2e-2 * scale
+        assert got.dtype == dtype
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_nn_kernels_match_plain(cuda):
+    rng = np.random.default_rng(13)
+    p = torch.from_numpy(rng.uniform(-30, 30, (2, 700, 3)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.uniform(-30, 30, (2, 5000, 3)).astype(np.float32)).to(cuda)
+    idx, d2 = tnn.nn_argmin(p, q)
+    with plain_versions():
+        idx_p, d2_p = tnn.nn_argmin(p, q)
+    assert torch.equal(idx, idx_p) and torch.equal(d2, d2_p)
+
+    start = torch.tensor([[0, 3, 10], [2, 0, 1]], dtype=torch.int32, device=cuda)
+    nblk = torch.tensor([[2, 1, 5], [0, 0, 0]], dtype=torch.int32, device=cuda)
+    p3 = p[:, :672].contiguous()  # 3 tiles of 224 rows
+    idx, d2 = tnn.nn_stripe(p3, q, start, nblk, tm=256)
+    with plain_versions():
+        idx_p, d2_p = tnn.nn_stripe(p3, q, start, nblk, tm=256)
+    assert torch.equal(idx[0], idx_p[0]) and torch.equal(d2[0], d2_p[0])
+
+
+def test_eval_step_runs_the_kernels(cuda):
+    spec = SyntheticSpec(n_scan=1024, n_map=4096, polar_shape=(128, 512),
+                         cart_pixel_width=128, res=0.25, cart_resolution=0.5,
+                         max_range=30.0, min_range=2.0, pos_std=0.4, rot_std=0.15)
+    cfg = Config(model=ModelConfig(enc_channels=(4, 8, 16), cart_pixel_width=128,
+                                   cart_resolution=0.5, res=0.25, polar_shape=(128, 512)))
+    trainer = Trainer(cfg, cuda)
+    params = trainer.init_state(0)
+    batch = synthetic_batch(3, 4, spec, device=cuda)
+    reset_launch_counts()
+    err, _, mask = trainer.eval_step(params, batch)
+    counts = launch_counts()
+    assert counts["conv3x3"] == 2 * 3 + 4 * 2
+    assert counts["nn_stripe"] + counts["nn_argmin"] >= 1
+    with plain_versions():
+        err_p, _, mask_p = trainer.eval_step(params, batch)
+    assert torch.isfinite(err).all()
+    assert (mask - mask_p).abs().max().item() < 1e-4
+    assert (err - err_p).abs().max().item() < 1e-3
+
+
+def test_stripe_dispatcher_matches_plain(cuda):
+    rng = np.random.default_rng(14)
+    q = np.full((3, 4096, 3), 1000.0, np.float32)
+    q[:, :3800, :2] = rng.uniform(-60, 60, (3, 3800, 2))
+    q[:, :3800, 2] = 0.0
+    q_s, key_s, use_x = tnn.stripe_sort_target(torch.from_numpy(q).to(cuda))
+    p = (q_s[:, :3800:7][:, :500] + 0.3).contiguous()
+    gate = torch.tensor([True, False, True], device=cuda)
+    # window 2048: stripe mode; 256: the tiles outgrow the budget → dense.
+    for window, mode in ((2048, "nn_stripe"), (256, "nn_argmin")):
+        reset_launch_counts()
+        idx, d2 = tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, 5.0,
+                                                 window=window, tn=128, refresh=gate)
+        assert launch_counts()[mode] == 1 and sum(launch_counts().values()) == 1
+        with plain_versions():
+            idx_p, d2_p = tnn.nn_argmin_stripe_presorted(
+                p, q_s, key_s, use_x, 5.0, window=window, tn=128, refresh=gate)
+        assert torch.equal(idx[gate], idx_p[gate]) and torch.equal(d2[gate], d2_p[gate])
+
+
+def test_bf16_eval_step_matches_plain(cuda):
+    spec = SyntheticSpec(n_scan=512, n_map=2048, polar_shape=(128, 512),
+                         cart_pixel_width=128, res=0.25, cart_resolution=0.5,
+                         max_range=30.0, min_range=2.0, pos_std=0.4, rot_std=0.15)
+    cfg = Config(model=ModelConfig(enc_channels=(4, 8, 16), cart_pixel_width=128,
+                                   cart_resolution=0.5, res=0.25, polar_shape=(128, 512),
+                                   dtype="bfloat16"))
+    trainer = Trainer(cfg, cuda)
+    params = trainer.init_state(1)
+    batch = synthetic_batch(4, 2, spec, device=cuda)
+    _, _, mask = trainer.eval_step(params, batch)
+    with plain_versions():
+        _, _, mask_p = trainer.eval_step(params, batch)
+    assert mask.dtype == torch.float32 and torch.isfinite(mask).all()
+    # bf16 activations: each conv output is rounded to 8 significant bits.
+    assert (mask - mask_p).abs().max().item() < 5e-2
