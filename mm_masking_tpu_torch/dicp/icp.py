@@ -1,9 +1,17 @@
-"""Batched ICP, point-to-point and point-to-plane, inference solver.
+"""Batched ICP, point-to-point and point-to-plane.
 
-Counterpart of ``mm_masking_tpu.dicp.icp`` for ``differentiable=False`` and
-``nn_refresh_dist == 0``: the tolerance-stopped Gauss-Newton loop that
-associates every iteration and freezes each batch item the moment its update
-drops under tolerance. Per iteration:
+Counterpart of ``mm_masking_tpu.dicp.icp`` for ``nn_refresh_dist == 0``, in
+its two modes:
+
+- ``differentiable=False`` (inference): the tolerance-stopped Gauss-Newton
+  loop that associates every iteration and freezes each batch item the
+  moment its update drops under tolerance;
+- ``differentiable=True`` (training): ``max_iterations`` unrolled GN steps
+  with no early exit, differentiable in the per-point weights (∂T/∂weight is
+  the signal that trains the mask). The association is discrete and taken
+  on the detached points.
+
+Per iteration:
 
   1. transform the source by the current T (left-composed, ``T ← exp(δ)T``);
   2. nearest-neighbour association against the map (the CUDA kernel of
@@ -13,8 +21,9 @@ drops under tolerance. Per iteration:
   4. weights: trim × robust × caller weight × source-pad mask;
   5. the weighted normal equations; ``dim=2`` solves only (x, y, yaw).
 
-The eager loop reads two scalars back per iteration (the stopping test and
-the stripe budget test); capturing it in a CUDA graph is later work.
+The eager loop reads scalars back per iteration (the stopping test of the
+inference loop and the stripe budget test); capturing it in a CUDA graph is
+later work.
 """
 from __future__ import annotations
 
@@ -99,8 +108,8 @@ def _hat(p: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Closed-form cofactor solve of batched 3×3 systems (forward only)."""
+def _solve3x3_impl(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Closed-form cofactor solve of batched 3×3 systems."""
     a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
@@ -123,6 +132,32 @@ def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+class _Solve3x3(torch.autograd.Function):
+    """The cofactor solve with the linear-solve adjoint as its backward:
+    b̄ = A⁻ᵀx̄ by the same cofactor solve, Ā = −b̄xᵀ. Autograd through the
+    cofactor arithmetic would carry 1/det² terms, which overflow float32 on a
+    near-dead damped system (A ≈ 1e-9·I, det ≈ 1e-27); this form stays finite
+    there and equals it elsewhere up to rounding (the JAX package's custom
+    VJP)."""
+
+    @staticmethod
+    def forward(ctx, A, b):
+        x = _solve3x3_impl(A, b)
+        ctx.save_for_backward(A, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        A, x = ctx.saved_tensors
+        gb = _solve3x3_impl(A.transpose(-1, -2), g)
+        return -gb[..., :, None] * x[..., None, :], gb
+
+
+def _solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve batched 3×3 systems A x = b; differentiable in A and b."""
+    return _Solve3x3.apply(A, b)
 
 
 def _prior_error6(T: torch.Tensor, T_prior: torch.Tensor) -> torch.Tensor:
@@ -224,6 +259,9 @@ def _gn_step(
     delta = torch.where(torch.isfinite(delta), delta, 0.0)
 
     if cfg.max_step_m > 0.0:
+        # Every backward factor stays finite at delta = 0: the floor keeps the
+        # sqrt and the division away from 0, and the clamp routes the
+        # cotangent to the constant branch when the step is inside the region.
         t_sq = (delta[:, :3] * delta[:, :3]).sum(-1)
         scale = cfg.max_step_m / torch.sqrt(t_sq.clamp(min=cfg.max_step_m ** 2))
         delta = delta * scale[:, None]
@@ -251,18 +289,16 @@ def icp(
     cfg: ICPConfig = ICPConfig(),
     T_prior: torch.Tensor | None = None,
 ) -> dict[str, Any]:
-    """Run the batched inference ICP.
+    """Run the batched ICP.
 
     source (B, N, 3) with (0, 0, ·) pad rows; target (B, M, 3) or (B, M, 6)
     (+normals for pt2pl) with ``cfg.target_pad_val`` pad rows; T_init
-    (B, 4, 4); weight optional (B, N). Returns {'T' (B, 4, 4), 'iterations'
-    (int), 'delta_norm' (B,)}.
+    (B, 4, 4); weight optional (B, N). Returns, with
+    ``cfg.differentiable``, {'T' (B, 4, 4), 'delta_norms' (max_iterations,
+    B)}; otherwise {'T', 'iterations' (int), 'delta_norm' (B,)}.
+    ``cfg.remat_iters`` is a memory knob of the JAX package and is ignored.
     """
-    if cfg.differentiable:
-        raise NotImplementedError(
-            "differentiable (unrolled) ICP is not ported yet: ROADMAP.md "
-            "queue 1, 'Training path'")
-    if cfg.nn_refresh_dist > 0.0:
+    if cfg.nn_refresh_dist > 0.0 and not cfg.differentiable:
         raise NotImplementedError(
             "motion-gated NN refresh (nn_refresh_dist > 0) is not ported yet: "
             "ROADMAP.md queue 1, 'Motion-gated refresh'")
@@ -283,7 +319,7 @@ def icp(
         source = _gather_rows(source, order)
         source_valid = torch.gather(source_valid, 1, order)
         if weight is not None:
-            weight = torch.gather(weight, 1, order)
+            weight = torch.gather(weight, 1, order)  # ∂/∂weight flows back through it
     target_pts = target[..., :3]
     target_nrm = target[..., 3:6] if target.shape[-1] >= 6 else None
     if cfg.icp_type == "pt2pl" and target_nrm is None:
@@ -300,6 +336,18 @@ def icp(
         weight=weight, source_valid=source_valid, cfg=cfg, T_prior=T_prior,
         assoc_fn=functools.partial(nn_argmin, q=target_pts, q4=q4),
     )
+
+    if cfg.differentiable:
+        T, norms = T_init, []
+        for _ in range(cfg.max_iterations):
+            p = transform_points(T, source).detach()
+            if stripe_assoc is not None:
+                idx, _ = stripe_assoc(p)
+            else:
+                idx, _ = nn_argmin(p, target_pts, q4)
+            T, delta = step(T, idx=idx)
+            norms.append(torch.linalg.vector_norm(delta, dim=-1))
+        return {"T": T, "delta_norms": torch.stack(norms)}
 
     B, N = source.shape[:2]
     T = T_init

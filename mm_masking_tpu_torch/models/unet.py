@@ -9,10 +9,15 @@ Reference architecture (``icp_weight_policy.py``):
   * bilinear upsampling with align_corners (index math in float32);
   * a final 1×1 conv and a sigmoid.
 
-Every 3×3 conv goes through the CUDA kernel of
-:mod:`mm_masking_tpu_torch.ops.kernels.conv2d` on a CUDA input, with the ReLU
-fused into its epilogue unless the activation is leaky. The 1×1 conv stays a
-PyTorch op, as it stayed an XLA op in the JAX package.
+Every 3×3 conv goes through the CUDA kernels of
+:mod:`mm_masking_tpu_torch.ops.kernels.conv2d` on a CUDA input (forward and
+backward), with the ReLU fused into its epilogue unless the activation is
+leaky. The 1×1 conv stays a PyTorch op, as it stayed an XLA op in the JAX
+package.
+
+Training mode (``train=True``) draws its inverted-dropout masks from an
+explicit ``torch.Generator`` and nothing from PyTorch's global generator, so
+a training step is reproducible from a seed. Batch norm does not train yet.
 """
 from __future__ import annotations
 
@@ -67,6 +72,14 @@ class Conv3x3(nn.Module):
                        self.bias.to(self.dtype), relu)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep each element with
+    probability 1 − rate and scale the kept ones by 1 / (1 − rate)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ConvBlock(nn.Module):
     """conv3x3-relu[-bn]-conv3x3-relu[-bn][-dropout][-maxpool]."""
 
@@ -78,7 +91,7 @@ class ConvBlock(nn.Module):
         # flax BatchNorm: epsilon 1e-5, running-average decay 0.99.
         self.bn0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.01) if batch_norm else None
         self.bn1 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.01) if batch_norm else None
-        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+        self.dropout = dropout
         self.leaky = leaky
         self.pool = pool
 
@@ -88,11 +101,13 @@ class ConvBlock(nn.Module):
             x = F.leaky_relu(x, 0.1)
         return bn(x) if bn is not None else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
+                ) -> torch.Tensor:
+        """``generator`` given: training mode, dropout on."""
         x = self._act(self.conv0, self.bn0, x)
         x = self._act(self.conv1, self.bn1, x)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if generator is not None and self.dropout > 0.0:
+            x = dropout(x, self.dropout, generator)
         if self.pool:
             x = F.max_pool2d(x, 2, 2)
         return x
@@ -139,17 +154,29 @@ class UNet(nn.Module):
                     mod.weight.copy_(w)
                     mod.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``train``: dropout masks from ``generator`` (on x's device), drawn
+        anew at each block application; required when dropout > 0."""
+        if train:
+            if self.blocks[0].bn0 is not None:
+                raise NotImplementedError(
+                    "batch-norm training is not ported yet: ROADMAP.md queue 1 "
+                    "item 19, 'Batch-norm training'")
+            if self.blocks[0].dropout > 0.0 and generator is None:
+                raise ValueError("training with dropout needs a torch.Generator")
+        else:
+            generator = None
         x = x.to(self.dtype)
         skips = []
         for block in self.blocks[:self.n_enc]:
             skips.append(x)
-            x = block(x)
+            x = block(x, generator)
         skips.reverse()
         for i, block in enumerate(self.blocks[self.n_enc:]):
             skip = skips[i]
             x = upsample_bilinear_align_corners(x, tuple(skip.shape[2:]))
-            x = block(x)
-            x = block(torch.cat([skip, x], dim=1))
+            x = block(x, generator)
+            x = block(torch.cat([skip, x], dim=1), generator)
         x = F.conv2d(x, self.final.weight.to(self.dtype), self.final.bias.to(self.dtype))
         return torch.sigmoid(x)[:, 0]

@@ -9,7 +9,7 @@ from mm_masking_tpu_torch.ops.radar import (
     point_to_cart_idx,
     radar_polar_to_cartesian,
 )
-from mm_masking_tpu_torch.ops.weights import WeightStats, extract_weights
+from mm_masking_tpu_torch.ops.weights import WeightStats, extract_bev_from_pts, extract_weights
 
 __all__ = [
     "CART_PIXEL_WIDTH",
@@ -18,6 +18,7 @@ __all__ = [
     "POLAR_SHAPE",
     "WeightStats",
     "cfar_mask",
+    "extract_bev_from_pts",
     "extract_weights",
     "form_cart_range_angle_grid",
     "grid_sample_2d",

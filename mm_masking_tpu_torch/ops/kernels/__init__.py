@@ -7,7 +7,9 @@ versions on CUDA tensors too, for comparison runs that hold a kernel against
 its reference on the card; nothing on the main path enters it.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``conv3x3.launches`` …), read with :func:`launch_counts`.
+(``conv3x3.launches`` …), read with :func:`launch_counts`. The conv's three
+jobs count apart: ``conv3x3`` (K2, forward), ``conv3x3_dx`` (K2 as the
+backward's dx) and ``conv3x3_dk`` (K3, the weight gradient).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from mm_masking_tpu_torch.ops.kernels._build import build
 
 _WRAPPERS = {
     "conv3x3": conv2d.conv3x3,
+    "conv3x3_dx": conv2d.conv3x3_dx,
+    "conv3x3_dk": conv2d.conv3x3_dk,
     "nn_stripe": nn_assoc.nn_stripe,
     "nn_argmin": nn_assoc.nn_argmin,
 }

@@ -5,7 +5,8 @@ The sources under ``mm_masking_tpu_torch/csrc/`` have a plain C interface
 PyTorch's headers and load through ``ctypes``. The library is built at
 first use into ``build/kernels/`` at the root of the checkout, under a name
 that hashes the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing file.
+unchanged one loads the existing file. Each source compiles in its own
+``nvcc`` process, all started together, and one more call links them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -32,6 +33,9 @@ _SIGNATURES = {
     # x, w, bias, y, B, Ci, Co, H, W, relu, stream
     "mm_conv3x3_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, dy, partial, dk, B, Ci, Co, H, W, n_chunks, stream
+    "mm_conv3x3_dk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mm_conv3x3_dk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # p, q4, start_blk, nblk, B, N, M, rows, tm, idx, d2, stream
     "mm_nn_argmin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
@@ -65,15 +69,29 @@ def build() -> BuildInfo:
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [out.with_name(f"{out.stem}_{src.stem}.{os.getpid()}.o") for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    log = "".join(logs)
+    failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, out)
-    return BuildInfo(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return BuildInfo(out, time.perf_counter() - t0, log)
 
 
 def library() -> ctypes.CDLL:
@@ -87,6 +105,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.mm_error_string.argtypes = [ctypes.c_int]
         lib.mm_error_string.restype = ctypes.c_char_p
+        lib.mm_conv3x3_dk_chunks.argtypes = [_I] * 5
+        lib.mm_conv3x3_dk_chunks.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -1,5 +1,6 @@
-"""Per-point weight lookup from the mask image (counterpart of
-``mm_masking_tpu.ops.weights``; reference ``radar_utils.py:108-140``)."""
+"""Per-point weight lookup from the mask image, and the map points' BEV
+occupancy (counterpart of ``mm_masking_tpu.ops.weights``; reference
+``radar_utils.py:108-165``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -55,3 +56,32 @@ def extract_weights(
         min_w=torch.where(real, w, float("inf")).min(),
     )
     return weights, stats
+
+
+def extract_bev_from_pts(
+    pc: torch.Tensor,
+    cart_pixel_width: int = CART_PIXEL_WIDTH,
+    cart_resolution: float = CART_RESOLUTION,
+) -> torch.Tensor:
+    """Points (B, N, 2/3) → binary BEV occupancy image (B, W, W), the target
+    of the mask_pts loss term.
+
+    Each point sets the 4 floor/ceil neighbour pixels of its fractional index
+    to 1. Indices outside the image are first sent to the centre pixel,
+    which is zeroed at the end; that also swallows the (0, 0) pad points.
+    Not differentiable.
+    """
+    pc_idx = point_to_cart_idx(pc, cart_resolution, cart_pixel_width)  # (B, N, 2)
+    mid = cart_pixel_width // 2
+    pc_idx = torch.where((pc_idx < 0) | (pc_idx > cart_pixel_width - 1), float(mid), pc_idx)
+    B = pc_idx.shape[0]
+    lo = torch.floor(pc_idx).long()
+    hi = torch.ceil(pc_idx).long()
+    bev = torch.zeros((B, cart_pixel_width, cart_pixel_width), dtype=pc.dtype,
+                      device=pc.device)
+    b_idx = torch.arange(B, device=pc.device)[:, None].expand_as(lo[..., 0])
+    for u in (lo[..., 0], hi[..., 0]):
+        for v in (lo[..., 1], hi[..., 1]):
+            bev[b_idx, u, v] = 1.0
+    bev[:, mid, mid] = 0.0
+    return bev

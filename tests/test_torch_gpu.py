@@ -16,7 +16,14 @@ from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.ops.kernels import launch_counts, plain_versions, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
-from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3, conv3x3_plain
+from mm_masking_tpu_torch.ops.kernels.conv2d import (
+    conv3x3,
+    conv3x3_dk,
+    conv3x3_dk_plain,
+    conv3x3_dx,
+    conv3x3_dx_plain,
+    conv3x3_plain,
+)
 from mm_masking_tpu_torch.train import Trainer
 
 pytestmark = pytest.mark.gpu
@@ -72,7 +79,7 @@ def test_eval_step_runs_the_kernels(cuda):
     cfg = Config(model=ModelConfig(enc_channels=(4, 8, 16), cart_pixel_width=128,
                                    cart_resolution=0.5, res=0.25, polar_shape=(128, 512)))
     trainer = Trainer(cfg, cuda)
-    params = trainer.init_state(0)
+    params = trainer.init_state(0).params
     batch = synthetic_batch(3, 4, spec, device=cuda)
     reset_launch_counts()
     err, _, mask = trainer.eval_step(params, batch)
@@ -114,7 +121,7 @@ def test_bf16_eval_step_matches_plain(cuda):
                                    cart_resolution=0.5, res=0.25, polar_shape=(128, 512),
                                    dtype="bfloat16"))
     trainer = Trainer(cfg, cuda)
-    params = trainer.init_state(1)
+    params = trainer.init_state(1).params
     batch = synthetic_batch(4, 2, spec, device=cuda)
     _, _, mask = trainer.eval_step(params, batch)
     with plain_versions():
@@ -122,3 +129,121 @@ def test_bf16_eval_step_matches_plain(cuda):
     assert mask.dtype == torch.float32 and torch.isfinite(mask).all()
     # bf16 activations: each conv output is rounded to 8 significant bits.
     assert (mask - mask_p).abs().max().item() < 5e-2
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| / max |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 96), (3, 8, 50), (8, 1, 33), (8, 16, 40),
+                                     (16, 32, 50), (64, 64, 40), (256, 128, 20)])
+def test_conv3x3_backward_kernels_match_plain(cuda, Ci, Co, H, dtype):
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.standard_normal((2, Ci, H, H + 7)).astype(np.float32))
+    # dy as a channel slice of a wider tensor: not contiguous, as the
+    # cotangent of a cat hands it to a decoder conv.
+    dy = torch.from_numpy(rng.standard_normal((2, Co + 3, H, H + 7)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((Co, Ci, 3, 3)) * 0.2).astype(np.float32))
+    x, w = x.to(cuda, dtype), w.to(cuda, dtype)
+    dy = dy.to(cuda, dtype)[:, 3:]
+    assert not dy.is_contiguous()
+    dk = conv3x3_dk(x, dy)
+    assert dk.dtype == torch.float32 and dk.shape == (Co, Ci, 3, 3)
+    # Both sum the same float32 products, in another order.
+    assert rel_err(dk, conv3x3_dk_plain(x, dy)) <= 1e-4
+    dx = conv3x3_dx(dy, w)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    # f32: summation order; bf16: one rounding of the result to 8 bits.
+    assert rel_err(dx, conv3x3_dx_plain(dy, w)) <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("Ci,Co,H,W", [(1, 8, 320, 320), (256, 256, 40, 40)])
+def test_conv3x3_dk_is_bitwise_reproducible(cuda, Ci, Co, H, W):
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(4, Ci, H, W, device=cuda, generator=g)
+    dy = torch.randn(4, Co, H, W, device=cuda, generator=g)
+    assert torch.equal(conv3x3_dk(x, dy), conv3x3_dk(x, dy))
+
+
+def test_conv3x3_output_carries_its_backward(cuda):
+    """A CUDA conv output has the conv's grad_fn, and its gradients equal the
+    plain path's."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 24, 40)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((16, 8, 3, 3)) * 0.2).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(16) * 0.1).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, 16, 24, 40)).astype(np.float32)).to(cuda)
+
+    def grads():
+        leaves = [t.clone().to(cuda).requires_grad_(True) for t in (x, w, b)]
+        y = conv3x3(*leaves, True)
+        assert type(y.grad_fn).__name__ == "_Conv3x3Backward"
+        return torch.autograd.grad(y, leaves, g)
+
+    reset_launch_counts()
+    got = grads()
+    counts = launch_counts()
+    assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == (1, 1, 1)
+    with plain_versions():
+        want = grads()
+    for a, e in zip(got, want):
+        assert rel_err(a, e) <= 1e-4
+
+
+def test_backward_through_a_cat_slice(cuda):
+    """The decoder's pattern: conv(cat([skip, conv(x)])). The cotangent of
+    the inner conv's output is a channel slice of the outer conv's dx."""
+    rng = np.random.default_rng(18)
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)  # noqa: E731
+    x, skip = mk(2, 8, 20, 36), mk(2, 8, 20, 36)
+    w1, w2 = mk(8, 8, 3, 3) * 0.2, mk(8, 16, 3, 3) * 0.2
+    b1, b2 = mk(8) * 0.1, mk(8) * 0.1
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        xx, a1, c1, a2, c2 = leaves
+        y = conv3x3(torch.cat([skip, conv3x3(xx, a1, c1, True)], dim=1), a2, c2, True)
+        return torch.autograd.grad(y.square().sum(), leaves)
+
+    got = grads()
+    with plain_versions():
+        want = grads()
+    for a, e in zip(got, want):
+        assert torch.isfinite(a).all() and rel_err(a, e) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_runs_the_kernels(cuda, dtype):
+    spec = SyntheticSpec(n_scan=1024, n_map=4096, polar_shape=(128, 512),
+                         cart_pixel_width=128, res=0.25, cart_resolution=0.5,
+                         max_range=30.0, min_range=2.0, pos_std=0.4, rot_std=0.15)
+    cfg = Config(model=ModelConfig(enc_channels=(4, 8, 16), cart_pixel_width=128,
+                                   cart_resolution=0.5, res=0.25, polar_shape=(128, 512),
+                                   max_iter=3, dtype=dtype))
+    trainer = Trainer(cfg, cuda)
+    batch = synthetic_batch(5, 4, spec, device=cuda)
+    state = trainer.init_state(2)
+    reset_launch_counts()
+    _, loss, _, gnorm = trainer.train_step(state, batch)
+    counts = launch_counts()
+    n_conv = 2 * 3 + 4 * 2
+    assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == (
+        n_conv, n_conv - 1, n_conv)
+    assert counts["nn_stripe"] + counts["nn_argmin"] >= 3
+    ref = trainer.init_state(2)
+    with plain_versions():
+        _, loss_p, _, gnorm_p = trainer.train_step(ref, batch)
+    assert torch.isfinite(loss) and torch.isfinite(gnorm)
+    if dtype == "float32":  # summation order only
+        assert abs(loss.item() - loss_p.item()) <= 1e-4 * abs(loss_p.item())
+        assert abs(gnorm.item() - gnorm_p.item()) <= 1e-2 * gnorm_p.item()
+    else:
+        # Each activation is rounded to 8 bits on both paths, and a sum in
+        # another order can flip that rounding. grad_norm is not compared:
+        # in bfloat16 several mask pixels tie at the image's max, and the
+        # BCE's 1/max(p(1-p), 1e-12) at p = 1 no longer cancels through the
+        # normalisation, so it reaches ~1e7 on both paths (and in the JAX
+        # package) and depends on which pixels tie.
+        assert abs(loss.item() - loss_p.item()) <= 2e-2 * abs(loss_p.item())

@@ -7,17 +7,18 @@ version on the card.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from mm_masking_tpu.ops.pallas import nn_assoc as jnn
-from mm_masking_tpu.ops.pallas.conv2d import conv3x3_nhcw
+from mm_masking_tpu.ops.pallas.conv2d import _dk_nhcw_raw, _pad_cw, _pick_th, conv3x3_nhcw
 from mm_masking_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from mm_masking_tpu_torch.ops.kernels._build import use_kernel
-from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3
+from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3, conv3x3_dk_plain
 
 
 ULP = 2.0 ** -23  # one float32 ulp, relative
@@ -51,6 +52,89 @@ def test_conv3x3_matches_pallas(Ci, Co, relu, dtype):
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                    atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Ci", [1, 3, 8])
+def test_conv3x3_dk_matches_pallas(Ci, dtype):
+    """K3's plain version vs the Pallas dk kernel (interpret mode), fed as the
+    JAX package's backward feeds it: C padded to the sublane tile, W to 128."""
+    B, H, W, Co = 2, 16, 200, 8
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((B, Ci, H, W)) * 0.1).astype(np.float32)
+    dy = (rng.standard_normal((B, Co, H, W)) * 0.1).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tile = 16 if dtype == "bfloat16" else 8
+    Cip, Cop, Wp = max(tile, -(-Ci // tile) * tile), max(tile, -(-Co // tile) * tile), 256
+    xj = _pad_cw(jnp.asarray(x).transpose(0, 2, 1, 3).astype(jdt), Cip, Wp)
+    dyj = _pad_cw(jnp.asarray(dy).transpose(0, 2, 1, 3).astype(jdt), Cop, Wp)
+    want = np.asarray(_dk_nhcw_raw(xj, dyj, _pick_th(H))).reshape(3, 3, Cip, Cop)[:, :, :Ci, :Co]
+    tdt = getattr(torch, dtype)
+    got = conv3x3_dk_plain(torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt))
+    assert got.dtype == torch.float32 and got.shape == (Co, Ci, 3, 3)
+    got = got.permute(2, 3, 1, 0).numpy()  # OIHW → HWIO
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_gradients_match_pallas_vjp(relu):
+    """jax.grad through conv3x3_nhcw's custom VJP (Pallas dx and dk in
+    interpret mode) vs the port's autograd Function on the CPU."""
+    B, H, W, Ci, Co = 2, 16, 40, 3, 8
+    x, k, b = conv_inputs(4, B, H, W, Ci, Co)
+    # Scaled so that dk, a sum over B·H·W products, is of order 1.
+    cot = (np.random.default_rng(5).standard_normal((B, Co, H, W)) * 0.02).astype(np.float32)
+
+    def loss(xj, kj, bj):
+        y = conv3x3_nhcw(xj.transpose(0, 2, 1, 3), kj, bj, relu)
+        return jnp.sum(y * jnp.asarray(cot).transpose(0, 2, 1, 3))
+
+    gx, gk, gb = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    y = conv3x3(xt, wt, bt, relu)
+    assert type(y.grad_fn).__name__ == "_Conv3x3Backward"
+    tx, tw, tb = torch.autograd.grad(y, (xt, wt, bt), torch.from_numpy(cot))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(gx), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tw.permute(2, 3, 1, 0).numpy(), np.asarray(gk), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(gb), rtol=0, atol=1e-5)
+
+
+def test_first_conv_takes_no_dx():
+    """An input that needs no gradient (the UNet's image) gets no dx."""
+    x, k, b = conv_inputs(6, 1, 8, 12, 1, 8)
+    w = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    y = conv3x3(torch.from_numpy(x), w, torch.from_numpy(b), True)
+    (gw,) = torch.autograd.grad(y.sum(), (w,))
+    assert gw.shape == w.shape and torch.isfinite(gw).all()
+
+
+def test_backward_hands_the_kernels_contiguous_tensors(monkeypatch):
+    """The cotangent that cat hands a decoder conv is a channel slice; the
+    backward copies it before the innermost calls, which on the card need
+    contiguous NCHW."""
+    from mm_masking_tpu_torch.ops.kernels import conv2d
+
+    seen = []
+    for name in ("conv3x3_dx_plain", "conv3x3_dk_plain"):
+        fn = getattr(conv2d, name)
+
+        def spy(a, b, fn=fn):
+            seen.append(a.is_contiguous() and b.is_contiguous())
+            return fn(a, b)
+
+        monkeypatch.setattr(conv2d, name, spy)
+    x, k, b = conv_inputs(7, 2, 8, 12, 4, 4)
+    w = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    inner = conv3x3(xt, w, torch.from_numpy(b), True)
+    outer = conv3x3(torch.cat([inner, inner * 2.0], dim=1)[:, 2:6], w, torch.from_numpy(b))
+    torch.autograd.grad(outer.sum(), (xt, w))
+    assert len(seen) == 4 and all(seen)
 
 
 def scene_points(seed, B, N, M):
@@ -149,7 +233,9 @@ def test_stripe_dispatcher_matches_dense_within_trim(refresh):
     reset_launch_counts()
     idx, d2 = tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, trim, window=512,
                                              tn=64, refresh=gate)
-    assert launch_counts() == {"conv3x3": 0, "nn_stripe": 0, "nn_argmin": 0}  # CPU
+    counts = launch_counts()  # CPU: no kernel runs
+    assert set(counts) == {"conv3x3", "conv3x3_dx", "conv3x3_dk", "nn_stripe", "nn_argmin"}
+    assert not any(counts.values())
     idx_d, d2_d = tnn.nn_argmin(p, q_s)
     near = d2_d < trim ** 2
     assert near.float().mean() > 0.9

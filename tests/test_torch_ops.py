@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,6 +45,37 @@ def test_se3_matches_jax(scale):
                          jgeom.planar_xi_first_order(T_j)):
         close(got, want)
     close(tgeom.hat3(torch.from_numpy(xi[:, :3])), jgeom.hat3(jnp.asarray(xi[:, :3])))
+
+
+@pytest.mark.parametrize("fn", ["se3_exp", "so3_exp", "so3_left_jacobian"])
+@pytest.mark.parametrize("scale", [0.0, 1e-3, 0.4])
+def test_se3_gradients_match_jax(fn, scale):
+    """Gradients under a random cotangent, finite at δ = 0 (the double
+    ``where`` guard of the small-angle branch) and equal to JAX's."""
+    rng = np.random.default_rng(11)
+    dim = 6 if fn == "se3_exp" else 3
+    xi = (rng.standard_normal((4, dim)) * scale).astype(np.float32)
+    if fn == "se3_exp":
+        xi[:, :3] = rng.uniform(-2, 2, (4, 3))
+    cot = rng.standard_normal((4, 4, 4) if fn == "se3_exp" else (4, 3, 3)).astype(np.float32)
+    (want,) = jax.grad(lambda v: jnp.sum(getattr(jgeom, fn)(v) * cot), argnums=(0,))(
+        jnp.asarray(xi))
+    t = torch.from_numpy(xi).requires_grad_(True)
+    (got,) = torch.autograd.grad((getattr(tgeom, fn)(t) * torch.from_numpy(cot)).sum(), (t,))
+    assert torch.isfinite(got).all()
+    close(got, want)
+
+
+def test_extract_bev_from_pts_matches_jax():
+    rng = np.random.default_rng(12)
+    pc = rng.uniform(-12, 12, (2, 300, 3)).astype(np.float32)
+    pc[:, -20:] = 0.0  # pad rows
+    pc[:, :10, :2] = rng.uniform(40, 60, (10, 2))  # outside the image
+    want = jops.extract_bev_from_pts(jnp.asarray(pc), cart_pixel_width=64, cart_resolution=0.4)
+    got = tops.extract_bev_from_pts(torch.from_numpy(pc), cart_pixel_width=64,
+                                    cart_resolution=0.4)
+    assert got.shape == (2, 64, 64) and 0 < float(got.sum()) < 2 * 4 * 300
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("align_corners", [True, False])
