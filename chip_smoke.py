@@ -23,6 +23,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            synthetic batch of 4096 scan and 16384 map points, with seeded
            random weights. The launch counters must show the kernels ran;
            the poses must match the same step run with the plain versions.
+           Then the same step with the dense association
+           (``icp_overrides=("nn_stripe=false",)``), the path of K1.
 5. train   ``Trainer.train_step`` at the default ``Config()`` (dropout 0.05,
            10 unrolled ICP iterations, Adam at 1e-4) on a 16-item synthetic
            batch of 4096 / 16384 points, 3 steps. The counters must show
@@ -31,12 +33,24 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            first step's loss and grad_norm must match the plain path's; a
            full-width UNet gradient must match the plain path's; then the
            median step time of both paths and their peak device memory.
+6. probes  the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
+           each probe kernel P1-P4 and each of P2's five variants against
+           its plain version at the probes' check shapes (f32) and at
+           B = 16, 640^2, 16 -> 16 (f32 and bf16; asm-only bit for bit),
+           then, with counters from 0, each timed at the probes' timing
+           shapes beside cuDNN's conv and K2; every probe kernel and variant
+           must have launched.
 
-The last two lines are a JSON object with the kernels' launches, errors and
+Every kernel's row carries its bound (``timing.bound_ms``: the larger of
+its operations over the H100's peak for the input type and its bytes over
+3.35 TB/s, summed over the launches a row times) and, where one PyTorch
+call computes the same function, that call's time (``library_ms``). The
+last two lines are a JSON object with the kernels' launches, errors and
 times, and the contract line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -47,11 +61,14 @@ import time
 import torch
 from torch.func import functional_call
 
+from mm_masking_tpu_torch.benchmarks import probe_conv
+from mm_masking_tpu_torch.benchmarks.timing import bound_ms, cuda_ms, in_turns
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.geom import transform_points
 from mm_masking_tpu_torch.ops import kernels
 from mm_masking_tpu_torch.ops.kernels import nn_assoc
+from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
 from mm_masking_tpu_torch.ops.kernels.conv2d import (
     conv3x3,
     conv3x3_dk,
@@ -68,44 +85,43 @@ TRAIN_BATCH, TRAIN_STEPS = 16, 3  # the train step's shapes (bench.py:215-243)
 CHECK_BATCH = 4  # smaller batch for the f32 + bf16 kernel-vs-plain value checks
 TRIM, TILE = 5.0, 256  # ICPConfig defaults: trim_dist, nn_stripe_tile
 
-# The CUDA kernels: name → (source, the Pallas call it replaces, the wrappers
-# that launch it). K2 serves the conv's forward and, on the rotated and
-# transposed weight, its backward's dx. The NN kernel has two launch modes:
-# the sorted stripe (K4, nn_assoc.py:358), which both paths run every ICP
-# iteration, and dense (K1, nn_assoc.py:170), the stripe dispatcher's fallback.
+# The CUDA kernels: row name → (source, the Pallas call it replaces, the
+# launch counters that count it). K2 serves the conv's forward and, on the
+# rotated and transposed weight, its backward's dx. One NN kernel has two
+# launch modes: the sorted stripe (K4), which the eval and train steps run
+# every ICP iteration, and dense (K1), which the eval step runs with
+# nn_stripe=false. P2's row counts its five variants.
 KERNELS = {
     "conv3x3": ("mm_masking_tpu_torch/csrc/conv3x3.cu",
                 "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
     "conv3x3_dk": ("mm_masking_tpu_torch/csrc/conv3x3_dk.cu",
                    "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
+    "nn_stripe": ("mm_masking_tpu_torch/csrc/nn_assoc.cu",
+                  "mm_masking_tpu/ops/pallas/nn_assoc.py:358", ("nn_stripe",)),
     "nn_argmin": ("mm_masking_tpu_torch/csrc/nn_assoc.cu",
-                  "mm_masking_tpu/ops/pallas/nn_assoc.py:358", ("nn_stripe", "nn_argmin")),
+                  "mm_masking_tpu/ops/pallas/nn_assoc.py:170", ("nn_argmin",)),
+    "conv3x3_nhcw": ("mm_masking_tpu_torch/csrc/conv_probe_nhcw.cu",
+                     "benchmarks/probe_pallas_conv.py:105", ("conv3x3_nhcw",)),
+    "conv3x3_nhcw_run": ("mm_masking_tpu_torch/csrc/conv_probe_nhcw.cu",
+                         "benchmarks/probe_pallas_conv2.py:103",
+                         tuple(f"conv3x3_nhcw_run:{v}" for v in VARIANTS)),
+    "conv3x3_nhcw_v2": ("mm_masking_tpu_torch/csrc/conv_probe_halo.cu",
+                        "benchmarks/probe_pallas_conv3.py:80", ("conv3x3_nhcw_v2",)),
+    "conv3x3_flat": ("mm_masking_tpu_torch/csrc/conv_probe_flat.cu",
+                     "benchmarks/probe_pallas_conv4.py:104", ("conv3x3_flat",)),
+}
+# Each probe's row is timed at the canonical low-channel stage (B = 16, 640^2,
+# 16 -> 16, bf16) with the probe's own default tile.
+PROBE_ROWS = {
+    "conv3x3_nhcw": "P1 B16 640x640 16->16 TH8",
+    "conv3x3_nhcw_run": "P2 B16 640x640 16->16 TH8 full",
+    "conv3x3_nhcw_v2": "P3 B16 640x640 16->16 TH16",
+    "conv3x3_flat": "P4 B16 640x640 16->16 TH16 ndot1",
 }
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of fn() in ms, by CUDA events, after one warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def in_turns(plain, kernel, timer) -> tuple[float, float]:
-    """(kernel, plain) times measured plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = timer(plain), timer(kernel), timer(kernel), timer(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def unet_conv_shapes(enc=(8, 16, 32, 64, 128, 256), width=640, cin=1):
@@ -125,6 +141,30 @@ def unet_conv_shapes(enc=(8, 16, 32, 64, 128, 256), width=640, cin=1):
             cin = 2 * feat
         cin = feat
     return shapes
+
+
+def seq_bound(works) -> tuple[float, str]:
+    """The bound of a run of launches, each (operations, bytes, input type):
+    the sum of their bounds, and the term that binds most of it."""
+    by = {"bytes": 0.0, "operations": 0.0}
+    for ops, nbytes, dtype in works:
+        t, which = bound_ms(ops, nbytes, dtype)
+        by[which] += t
+    return sum(by.values()), max(by, key=by.get)
+
+
+def conv_works(shapes, batch) -> dict[str, list]:
+    """(operations, bytes, type) of one step's f32 convs at ``batch``: the
+    forward (x, weight and bias in, y out), dx (dy and weight in, dx out;
+    every conv but the first) and dk (x and dy in, dk out)."""
+    works = {"fwd": [], "dx": [], "dk": []}
+    for i, (ci, co, h) in enumerate(shapes):
+        ops, io = 18 * ci * co * batch * h * h, 4 * (batch * h * h * (ci + co) + 9 * ci * co)
+        works["fwd"].append((ops, io + 4 * co, torch.float32))
+        if i > 0:
+            works["dx"].append((ops, io, torch.float32))
+        works["dk"].append((ops, io, torch.float32))
+    return works
 
 
 def check_conv(device, shapes) -> tuple[float, float, float]:
@@ -276,10 +316,13 @@ def check_dense(batch) -> tuple[float, float, float]:
 
     k_ms, p_ms = in_turns(plain, lambda: nn_assoc.nn_argmin(p, q3, q4),
                           lambda fn: cuda_ms(fn, reps=3))
-    log("kernels", f"nn_argmin B={p.shape[0]} N={p.shape[1]} M={q.shape[1]}: "
-        f"kernel {k_ms:.3f} ms, "
-        f"plain {p_ms:.3f} ms")
-    return err, k_ms, p_ms
+    B, N, M = p.shape[0], p.shape[1], q.shape[1]
+    # 8 operations per (scan, map) pair: 3 differences, 3 squares, 2 sums;
+    # p and q in, index and d2 out.
+    bound = bound_ms(8 * B * N * M, B * (12 * N + 12 * M + 8 * N), torch.float32)
+    log("kernels", f"nn_argmin B={B} N={N} M={M}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+    return err, k_ms, p_ms, bound
 
 
 def check_stripe(batch) -> tuple[float, float, float]:
@@ -314,17 +357,24 @@ def check_stripe(batch) -> tuple[float, float, float]:
 
     k_ms, p_ms = in_turns(plain, lambda: nn_assoc.nn_stripe(p, q3, start, nblk, tm, q4),
                           lambda fn: cuda_ms(fn, reps=3))
-    log("kernels", f"nn_stripe: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-    return err, k_ms, p_ms
+    # The pairs this launch's nblk asks for: each live tile of TILE rows
+    # against nblk blocks of tm map points, 8 operations each.
+    pairs = int(nblk.long().sum()) * tm * TILE
+    bound = bound_ms(8 * pairs, B * (12 * N + 12 * M + 8 * N) + 2 * nblk.numel() * 4,
+                     torch.float32)
+    log("kernels", f"nn_stripe: {pairs} candidate pairs; kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    return err, k_ms, p_ms, bound
 
 
 def yaw_deg(R: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(torch.atan2(R[..., 1, 0], R[..., 0, 0]))
 
 
-def run_slice(device, batch, cfg: Config) -> tuple[dict, float, float]:
-    trainer = Trainer(cfg, device)
-    params = trainer.init_state(seed=0).params
+def run_slice(trainer: Trainer, params: dict, batch) -> dict:
+    """``Trainer.eval_step`` checked against the plain path; returns the
+    counters of the main path's step."""
+    cfg = trainer.cfg
     trainer.eval_step(params, batch)  # warm-up: allocator, cuDNN plans
     torch.cuda.synchronize()
 
@@ -372,6 +422,12 @@ def run_slice(device, batch, cfg: Config) -> tuple[dict, float, float]:
             f"|dt| {dt[~conv].tolist()} m, |dyaw| {dyaw[~conv].tolist()} deg")
     if not conv.any() or dt[conv].max().item() > 1e-3 or dyaw[conv].max().item() > 5e-3:
         raise AssertionError("kernel and plain poses differ beyond 1 mm / 0.005 deg")
+    return counts
+
+
+def time_eval(trainer: Trainer, params: dict, batch) -> tuple[float, float]:
+    """(kernel-path ms, plain-path ms) of ``Trainer.eval_step``, each the
+    median of 3 steps on the host clock, in turns."""
 
     def step_ms(plain: bool, reps: int = 3) -> float:
         """Median host-clock ms of `reps` steps, each ending in a synchronise."""
@@ -389,10 +445,11 @@ def run_slice(device, batch, cfg: Config) -> tuple[dict, float, float]:
         return statistics.median(times)
 
     k_ms, p_ms = in_turns(lambda: step_ms(True), lambda: step_ms(False), lambda f: f())
-    log("slice", f"eval_step B={len(conv)} {width}^2 N={loc['raw_pc'].shape[1]} "
-        f"M={mp['pc'].shape[1]}, median of 3 in turns: kernel path "
+    log("slice", f"eval_step B={len(batch['transforms']['T_ml_init'])} "
+        f"{trainer.cfg.model.cart_pixel_width}^2 N={batch['loc_data']['raw_pc'].shape[1]} "
+        f"M={batch['map_data']['pc'].shape[1]}, median of 3 in turns: kernel path "
         f"{k_ms:.1f} ms, plain path {p_ms:.1f} ms")
-    return counts, k_ms, p_ms
+    return k_ms, p_ms
 
 
 def check_unet_gradient(device, trainer: Trainer, params: dict) -> float:
@@ -521,6 +578,30 @@ def run_train(device, cfg: Config) -> tuple[dict, dict]:
                     "unet_grad_rel": unet_rel}
 
 
+def run_probes(device) -> tuple[dict, dict]:
+    """Phase 6, the conv-probe path: the checks, then the timing with the
+    counters from 0; returns (those counters, {row: measured numbers})."""
+    checks = probe_conv.check_all(probe_conv.PROBES, device)
+    kernels.reset_launch_counts()
+    times = probe_conv.time_all(probe_conv.PROBES, device)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    log("probes", f"launches {counts}")
+    idle = [w for name in PROBE_ROWS for w in KERNELS[name][2] if counts[w] < 1]
+    if idle:
+        raise AssertionError(f"probe kernels the probe path never launched: {idle}")
+    rows = {}
+    for name, label in PROBE_ROWS.items():
+        probe = label.split()[0]
+        errs = [c["abs"] for c in checks if c["label"].startswith(probe + " ")
+                and c["dtype"] == "float32" and c["abs"] is not None]
+        t = next(r for r in times if r["label"] == label)
+        rows[name] = {"max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain_ms"],
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                      "library_ms": t["library_ms"]}
+    return counts, rows
+
+
 def main() -> int:
     log("env", f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"available={torch.cuda.is_available()} python {sys.version.split()[0]}")
@@ -548,28 +629,51 @@ def main() -> int:
     bwd = check_conv_backward(device, shapes)
     dense = check_dense(batch)
     stripe = check_stripe(batch)
-    counts, step_ms, step_plain = run_slice(device, batch, cfg)
+    trainer = Trainer(cfg, device)
+    params = trainer.init_state(seed=0).params
+    counts = run_slice(trainer, params, batch)
+    step_ms, step_plain = time_eval(trainer, params, batch)
+    dense_trainer = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, icp_overrides=cfg.model.icp_overrides + ("nn_stripe=false",))), device)
+    dense_counts = run_slice(dense_trainer, dense_trainer.init_state(seed=0).params, batch)
+    if dense_counts["nn_stripe"] or not dense_counts["nn_argmin"]:
+        raise AssertionError(f"nn_stripe=false did not take the dense NN: {dense_counts}")
     del batch
     train_counts, train = run_train(device, cfg)
+    probe_counts, probes = run_probes(device)
 
-    # launches: the eval path's run plus the train path's 3 steps. Errors:
-    # float32 max |kernel − plain| over every stage, at B = 4 for the forward
-    # and at B = 4 and 16 for dx and dk. conv3x3 (forward
-    # and dx): one train step's forward + dx at B = 16 (the eval step's
-    # forward at B = 32 is logged above); conv3x3_dk: one train step's dk at
-    # B = 16. The NN kernel's numbers are those of its stripe mode, the one
-    # both paths launch; its dense mode was checked and timed above.
+    # launches: the sum over the main paths' counted runs (the eval step,
+    # the dense eval step, the train path's 3 steps, the probe timing).
+    # Errors: float32 max |kernel − plain| over every stage, at B = 4 for the
+    # forward and at B = 4 and 16 for dx and dk. conv3x3 (forward and dx):
+    # one train step's forward + dx at B = 16 (the eval step's forward at
+    # B = 32 is logged above); conv3x3_dk: one train step's dk at B = 16.
+    # Their plain versions are cuDNN's calls (F.conv2d,
+    # torch.nn.grad.conv2d_weight), so those are their library times. No
+    # single PyTorch call computes an NN argmin.
+    works = conv_works(shapes, TRAIN_BATCH)
     measured = {
-        "conv3x3": (max(conv_err, bwd["dx_abs"]), bwd["fwd"] + bwd["dx"],
-                    bwd["fwd_plain"] + bwd["dx_plain"]),
-        "conv3x3_dk": (bwd["dk_abs"], bwd["dk"], bwd["dk_plain"]),
-        "nn_argmin": (max(stripe[0], dense[0]), stripe[1], stripe[2]),
+        "conv3x3": {"max_abs_err": max(conv_err, bwd["dx_abs"]), "ms": bwd["fwd"] + bwd["dx"],
+                    "plain_ms": bwd["fwd_plain"] + bwd["dx_plain"],
+                    "library_ms": bwd["fwd_plain"] + bwd["dx_plain"]},
+        "conv3x3_dk": {"max_abs_err": bwd["dk_abs"], "ms": bwd["dk"], "plain_ms": bwd["dk_plain"],
+                       "library_ms": bwd["dk_plain"]},
+        "nn_stripe": {"max_abs_err": stripe[0], "ms": stripe[1], "plain_ms": stripe[2],
+                      "library_ms": None},
+        "nn_argmin": {"max_abs_err": dense[0], "ms": dense[1], "plain_ms": dense[2],
+                      "library_ms": None},
+        **probes,
     }
+    for name, bound in (("conv3x3", seq_bound(works["fwd"] + works["dx"])),
+                        ("conv3x3_dk", seq_bound(works["dk"])), ("nn_stripe", stripe[3]),
+                        ("nn_argmin", dense[3])):
+        measured[name]["bound_ms"], measured[name]["bound_by"] = bound
+    paths = (counts, dense_counts, train_counts, probe_counts)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(counts[w] + train_counts[w] for w in wrappers),
-         "max_abs_err": measured[name][0], "ms": measured[name][1],
-         "plain_ms": measured[name][2]}
+         "launches": sum(c[w] for c in paths for w in wrappers),
+         **{k: measured[name][k] for k in keys}}
         for name, (src, rep, wrappers) in KERNELS.items()
     ]
     idle = [r["name"] for r in rows if r["launches"] < 1]

@@ -9,13 +9,16 @@ its reference on the card; nothing on the main path enters it.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``conv3x3.launches`` …), read with :func:`launch_counts`. The conv's three
 jobs count apart: ``conv3x3`` (K2, forward), ``conv3x3_dx`` (K2 as the
-backward's dx) and ``conv3x3_dk`` (K3, the weight gradient).
+backward's dx) and ``conv3x3_dk`` (K3, the weight gradient). The conv-probe
+kernels P1–P4 count as ``conv3x3_nhcw``, ``conv3x3_nhcw_run:<variant>`` (one
+counter for each of P2's five variants), ``conv3x3_nhcw_v2`` and
+``conv3x3_flat``.
 """
 from __future__ import annotations
 
 import contextlib
 
-from mm_masking_tpu_torch.ops.kernels import _build, conv2d, nn_assoc
+from mm_masking_tpu_torch.ops.kernels import _build, conv2d, conv_probes, nn_assoc
 from mm_masking_tpu_torch.ops.kernels._build import build
 
 _WRAPPERS = {
@@ -24,6 +27,10 @@ _WRAPPERS = {
     "conv3x3_dk": conv2d.conv3x3_dk,
     "nn_stripe": nn_assoc.nn_stripe,
     "nn_argmin": nn_assoc.nn_argmin,
+    "conv3x3_nhcw": conv_probes.conv3x3_nhcw,
+    **{f"conv3x3_nhcw_run:{v}": c for v, c in conv_probes.RUN_COUNTERS.items()},
+    "conv3x3_nhcw_v2": conv_probes.conv3x3_nhcw_v2,
+    "conv3x3_flat": conv_probes.conv3x3_flat,
 }
 
 

@@ -4,9 +4,10 @@ The sources under ``mm_masking_tpu_torch/csrc/`` have a plain C interface
 (pointers, ints and the stream), so they compile in seconds without
 PyTorch's headers and load through ``ctypes``. The library is built at
 first use into ``build/kernels/`` at the root of the checkout, under a name
-that hashes the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing file. Each source compiles in its own
-``nvcc`` process, all started together, and one more call links them.
+that hashes the sources, their headers (``*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads the existing
+file. Each source compiles in its own ``nvcc`` process, all started
+together, and one more call links them.
 """
 from __future__ import annotations
 
@@ -38,6 +39,26 @@ _SIGNATURES = {
     "mm_conv3x3_dk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # p, q4, start_blk, nblk, B, N, M, rows, tm, idx, d2, stream
     "mm_nn_argmin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # xp, kmat, y, B, H, Ci, Co, W, TH, Wt, variant, relu, vec, stream
+    "mm_probe_nhcw_f32": [_P, _P, _P] + [_I] * 10 + [_P],
+    "mm_probe_nhcw_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    # x, kmat, y, B, H, Ci, Co, W, TH, Wt, G, relu, vec, stream
+    "mm_probe_halo_f32": [_P, _P, _P] + [_I] * 10 + [_P],
+    "mm_probe_halo_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    # x, kmat, y, B, Ci, Co, H, W, TH, Lc, ndot, relu, vec, stream
+    "mm_probe_flat_f32": [_P, _P, _P] + [_I] * 10 + [_P],
+    "mm_probe_flat_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+}
+# Host-side functions of the sources: name → (argument types, result type).
+_HOST = {
+    "mm_error_string": ([_I], ctypes.c_char_p),
+    # B, Ci, Co, H, W → K3's spatial chunks
+    "mm_conv3x3_dk_chunks": ([_I] * 5, _I),
+    # Shared bytes of one probe block: (variant, Ci, Co, TH, Wt, elem),
+    # (Ci, Co, TH, Wt, elem) and (Ci, Co, W, Lc, elem).
+    "mm_probe_nhcw_smem_bytes": ([_I] * 6, ctypes.c_size_t),
+    "mm_probe_halo_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "mm_probe_flat_smem_bytes": ([_I] * 5, ctypes.c_size_t),
 }
 
 
@@ -62,7 +83,7 @@ def build() -> BuildInfo:
     """Compile the kernels if this version of the sources is not built yet."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(_CSRC.glob("*.cu*")):  # the sources and their shared headers
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libmm_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
@@ -99,14 +120,11 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in _SIGNATURES.items():
+        entries = {**{n: (a, _I) for n, a in _SIGNATURES.items()}, **_HOST}
+        for name, (argtypes, restype) in entries.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.mm_error_string.argtypes = [ctypes.c_int]
-        lib.mm_error_string.restype = ctypes.c_char_p
-        lib.mm_conv3x3_dk_chunks.argtypes = [_I] * 5
-        lib.mm_conv3x3_dk_chunks.restype = ctypes.c_int
+            fn.restype = restype
         _lib = lib
     return _lib
 

@@ -17,7 +17,8 @@ steps it prints:
 4. the peak device memory.
 
 ``--set section.field=value`` overrides the config as in the training CLI;
-``--device cpu`` runs it at a small size without device numbers.
+It runs on the card and raises without one; ``--device cpu`` runs it at a
+small size without device numbers.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import mm_masking_tpu_torch.models.policy as policy_module
 import mm_masking_tpu_torch.train.trainer as trainer_module
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
+from mm_masking_tpu_torch.device import resolve_device
 from mm_masking_tpu_torch.train.train_icp_weights import apply_overrides
 from mm_masking_tpu_torch.train.trainer import Trainer
 
@@ -89,11 +91,12 @@ def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float]:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--set", action="append", default=[], metavar="SEC.FIELD=V")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
     cfg = apply_overrides(Config(), args.set)
     trainer = Trainer(cfg, device)
     m, bsz = cfg.model, cfg.train.batch_size_train

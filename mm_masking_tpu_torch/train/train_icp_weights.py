@@ -3,9 +3,9 @@
 
 Counterpart of ``mm_masking_tpu.train.train_icp_weights``: every config field
 can be set as ``--set section.field=value``, and ``--synthetic`` runs the
-whole loop on generated data. ``--device`` picks the card (``cuda``, the
-default where one is present) or the CPU. Training on the Boreas data needs
-the data loader, which is not ported yet.
+whole loop on generated data. It runs on the card (``--device cuda``, the
+default) and raises without one; ``--device cpu`` runs it on the CPU.
+Training on the Boreas data needs the data loader, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,9 +13,8 @@ import argparse
 import dataclasses
 import math
 
-import torch
-
 from mm_masking_tpu_torch.config import Config
+from mm_masking_tpu_torch.device import resolve_device
 
 
 def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
@@ -71,7 +70,8 @@ def main(argv=None):
                     help="fraction of scan returns that are clutter/ghosts")
     ap.add_argument("--scene-noise", type=float, default=0.02,
                     help="scan point noise std (m)")
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--set", action="append", default=[], metavar="SEC.FIELD=V",
                     help="config override, e.g. --set train.num_epochs=5")
     args = ap.parse_args(argv)
@@ -96,7 +96,7 @@ def main(argv=None):
     bt, bv = cfg.train.batch_size_train, cfg.train.batch_size_test
     n_train = max(1, args.synthetic_frames // bt)
     cfg = _autofill_decay_steps(cfg, n_train * bt)
-    device = torch.device(args.device)
+    device = resolve_device(args.device)
 
     if args.synthetic_fixed:
         # Kept on the host; each step copies its batch to the device.

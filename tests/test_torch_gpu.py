@@ -12,10 +12,19 @@ import numpy as np
 import pytest
 import torch
 
+from mm_masking_tpu_torch.benchmarks.probe_conv import CHECKS, FULL, Case, check
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.ops.kernels import launch_counts, plain_versions, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
+from mm_masking_tpu_torch.ops.kernels._build import library
+from mm_masking_tpu_torch.ops.kernels.conv_probes import (
+    LANE_CHUNKS,
+    SMEM_LIMIT,
+    SMEM_TWO,
+    W_TILES,
+    pick_size,
+)
 from mm_masking_tpu_torch.ops.kernels.conv2d import (
     conv3x3,
     conv3x3_dk,
@@ -247,3 +256,49 @@ def test_train_step_runs_the_kernels(cuda, dtype):
         # normalisation, so it reaches ~1e7 on both paths (and in the JAX
         # package) and depends on which pixels tie.
         assert abs(loss.item() - loss_p.item()) <= 2e-2 * abs(loss_p.item())
+
+
+# Each probe kernel and P2 variant at a small shape (the probe's first check
+# shape), at a ragged one (W = 130 takes no 16-byte copies and ends in a
+# partial column tile; Co = 5 leaves a partial channel group; P3's 5 row
+# tiles split unevenly over its blocks) and at full size (B = 16, 640^2,
+# 16 -> 16).
+PROBE_CASES = (
+    [CHECKS[p][0] for p in ("P1", "P3", "P4")] + CHECKS["P2"][:5]
+    + [Case("P1", 1, 16, 130, 3, 5, 8, relu=True), Case("P3", 2, 40, 130, 3, 5, 8),
+       Case("P4", 2, 24, 130, 3, 5, 8, ndot=3)]
+    + [Case("P2", 1, 16, 130, 3, 5, 8, variant=v) for v in ("full", "asm-only", "row2",
+                                                             "tap-dots")]
+    + [c for p in ("P1", "P2", "P3", "P4") for c in FULL[p]])
+COUNTER = {"P1": "conv3x3_nhcw", "P3": "conv3x3_nhcw_v2", "P4": "conv3x3_flat"}
+
+
+def test_probe_tiles_fit_the_shared_memory(cuda):
+    """The tiles the host picks from the sources' own block sizes."""
+    lib = library()
+    nhcw, halo = lib.mm_probe_nhcw_smem_bytes, lib.mm_probe_halo_smem_bytes
+    assert pick_size(W_TILES, lambda t: nhcw(0, 16, 16, 8, t, 2), "x") == 32
+    # 320², 32 -> 32, TH 8, f32: a whole-width tile would need far more.
+    assert pick_size(W_TILES, lambda t: nhcw(0, 32, 32, 8, t, 4), "x") == 16
+    assert SMEM_TWO < nhcw(0, 32, 32, 8, 16, 4) <= SMEM_LIMIT
+    # P3 at TH 32 in f32 with its two ring slots: only 8 columns fit.
+    assert pick_size(W_TILES, lambda t: halo(16, 16, 32, t, 4), "x") == 8
+    flat = lib.mm_probe_flat_smem_bytes
+    assert pick_size(LANE_CHUNKS, lambda c: flat(16, 16, 640, c, 2), "x") == 1024
+    # tap-dots builds no im2col stack, so it takes a wider tile than full.
+    assert nhcw(4, 16, 16, 16, 32, 2) < nhcw(0, 16, 16, 16, 32, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        pick_size(W_TILES, lambda t: nhcw(0, 64, 64, 32, t, 4), "P1 64->64")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PROBE_CASES, ids=lambda c: c.label.replace(" ", "-"))
+def test_conv_probe_kernels_match_plain(cuda, case, dtype):
+    """check() raises beyond 1e-4 (f32) or 1e-2 (bf16) of max|y| from the
+    plain version or from F.conv2d; asm-only must match bit for bit and
+    dot-only (undefined value) its shape and type."""
+    reset_launch_counts()
+    check(case, dtype, cuda)
+    torch.cuda.synchronize()
+    name = COUNTER.get(case.probe, f"conv3x3_nhcw_run:{case.variant}")
+    assert launch_counts()[name] == 1

@@ -19,6 +19,7 @@ from mm_masking_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from mm_masking_tpu_torch.ops.kernels._build import use_kernel
 from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3, conv3x3_dk_plain
+from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
 
 
 ULP = 2.0 ** -23  # one float32 ulp, relative
@@ -234,7 +235,9 @@ def test_stripe_dispatcher_matches_dense_within_trim(refresh):
     idx, d2 = tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, trim, window=512,
                                              tn=64, refresh=gate)
     counts = launch_counts()  # CPU: no kernel runs
-    assert set(counts) == {"conv3x3", "conv3x3_dx", "conv3x3_dk", "nn_stripe", "nn_argmin"}
+    assert set(counts) == {"conv3x3", "conv3x3_dx", "conv3x3_dk", "nn_stripe", "nn_argmin",
+                           "conv3x3_nhcw", "conv3x3_nhcw_v2", "conv3x3_flat",
+                           *(f"conv3x3_nhcw_run:{v}" for v in VARIANTS)}
     assert not any(counts.values())
     idx_d, d2_d = tnn.nn_argmin(p, q_s)
     near = d2_d < trim ** 2

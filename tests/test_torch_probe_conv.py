@@ -1,0 +1,202 @@
+"""The port's conv-probe path vs the JAX package's probes P1–P4.
+
+The same numpy inputs go through each Pallas probe of
+``benchmarks/probe_pallas_conv*.py`` (P1 with ``interpret=True``, P2 and P3
+under ``force_tpu_interpret_mode()``, P4 interprets by itself off the TPU)
+and through its counterpart in ``ops/kernels/conv_probes.py``, which runs
+its plain version on the CPU. ``test_torch_gpu.py`` holds the CUDA kernels
+against those plain versions on the card.
+"""
+from __future__ import annotations
+
+import importlib
+import os
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mm_masking_tpu_torch.benchmarks import probe_conv
+from mm_masking_tpu_torch.ops.kernels import conv_probes as cp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def probes():
+    """The four probe modules. Importing P2–P4 points JAX's persistent
+    compilation cache at the checkout for the whole process; the settings
+    are put back after the import."""
+    keys = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    try:
+        mods = [importlib.import_module(f"benchmarks.probe_pallas_conv{s}")
+                for s in ("", "2", "3", "4")]
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    return types.SimpleNamespace(p1=mods[0], p2=mods[1], p3=mods[2], p4=mods[3])
+
+
+def data(seed, B, H, W, Ci, Co):
+    """x NCHW and k HWIO as the probes draw them (f32 numpy)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, Ci, H, W)).astype(np.float32)
+    k = (rng.standard_normal((3, 3, Ci, Co)) * 0.1).astype(np.float32)
+    return x, k
+
+
+def both(x, k, dtype):
+    """(jax x, jax k, torch x, torch k), rounded to ``dtype`` alike."""
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32,
+                                                                            torch.float32)
+    return (jnp.asarray(x).astype(jdt), jnp.asarray(k).astype(jdt),
+            torch.from_numpy(x).to(tdt), torch.from_numpy(k).to(tdt))
+
+
+def assert_close(got: torch.Tensor, want, dtype: str):
+    """f32: the sums run in another order (measured <= 1.9e-6 of max|y|);
+    bf16: one rounding of the output to 8 bits."""
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == want.shape
+    scale = np.abs(want).max()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol * scale)
+
+
+CASES_P1 = [(2, 32, 256, 8, 8, False), (1, 16, 128, 16, 8, False), (2, 24, 128, 8, 16, False),
+            (1, 8, 256, 3, 8, False), (2, 32, 256, 8, 8, True)]
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,relu,dtype",
+                         [(*c, "float32") for c in CASES_P1] + [(*CASES_P1[0], "bfloat16")])
+def test_p1_matches_probe(probes, B, H, W, Ci, Co, relu, dtype):
+    x, k = data(0, B, H, W, Ci, Co)
+    jx, jk, tx, tk = both(x, k, dtype)
+    want = probes.p1.conv3x3_nhcw_pallas(jnp.transpose(jx, (0, 2, 1, 3)), jk, TH=8,
+                                          relu=relu, interpret=True)
+    got = cp.conv3x3_nhcw(tx.transpose(1, 2).contiguous(), tk, TH=8, relu=relu)
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("variant", ["full", "row2", "tap-dots", "asm-only", "dot-only"])
+@pytest.mark.parametrize("B,H,W,Ci,Co,TH", [(1, 16, 128, 8, 8, 8), (1, 32, 128, 16, 16, 16)])
+def test_p2_variants_match_probe(probes, B, H, W, Ci, Co, TH, variant):
+    x, k = data(1, B, H, W, Ci, Co)
+    xp = np.pad(x.transpose(0, 2, 1, 3), ((0, 0), (1, 1), (0, 0), (0, 0)))
+    kmat = np.transpose(k, (3, 0, 1, 2)).reshape(Co, 9 * Ci)
+    with pltpu.force_tpu_interpret_mode():
+        want = probes.p2.run(variant, jnp.asarray(xp), jnp.asarray(kmat), TH, Ci, Co, W)
+    got = cp.conv3x3_nhcw_run(variant, torch.from_numpy(xp), torch.from_numpy(kmat), TH)
+    if variant == "dot-only":  # scratch that was never written: only shape and type
+        assert tuple(got.shape) == want.shape == (B, H, Co, W)
+        assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    elif variant == "asm-only":  # a copy of the im2col stack: exact
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        assert_close(got, want, "float32")
+
+
+def test_p2_bf16_matches_probe(probes):
+    B, H, W, Ci, Co, TH = 1, 32, 128, 16, 16, 16
+    x, k = data(2, B, H, W, Ci, Co)
+    xp = np.pad(x.transpose(0, 2, 1, 3), ((0, 0), (1, 1), (0, 0), (0, 0)))
+    kmat = np.transpose(k, (3, 0, 1, 2)).reshape(Co, 9 * Ci)
+    jxp, jkm, txp, tkm = both(xp, kmat, "bfloat16")
+    with pltpu.force_tpu_interpret_mode():
+        want = probes.p2.run("full", jxp, jkm, TH, Ci, Co, W)
+    assert_close(cp.conv3x3_nhcw_run("full", txp, tkm, TH), want, "bfloat16")
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,TH,dtype", [
+    (2, 32, 256, 8, 8, 8, "float32"), (1, 32, 128, 16, 16, 16, "float32"),
+    (2, 24, 128, 1, 8, 8, "float32"), (1, 32, 128, 16, 16, 16, "bfloat16")])
+def test_p3_matches_probe(probes, B, H, W, Ci, Co, TH, dtype):
+    x, k = data(3, B, H, W, Ci, Co)
+    jx, jk, tx, tk = both(x, k, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = probes.p3.conv3x3_nhcw_v2(jnp.transpose(jx, (0, 2, 1, 3)), jk, TH=TH)
+    got = cp.conv3x3_nhcw_v2(tx.transpose(1, 2).contiguous(), tk, TH=TH)
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("B,H,W,Ci,Co,TH,ndot,dtype", [
+    (2, 32, 256, 8, 8, 8, 1, "float32"), (1, 32, 128, 16, 16, 16, 1, "float32"),
+    (1, 32, 128, 16, 16, 16, 3, "float32"), (2, 24, 128, 1, 8, 8, 1, "float32"),
+    (1, 32, 128, 16, 16, 16, 3, "bfloat16")])
+def test_p4_matches_probe(probes, B, H, W, Ci, Co, TH, ndot, dtype):
+    x, k = data(4, B, H, W, Ci, Co)
+    jx, jk, tx, tk = both(x, k, dtype)
+    want = probes.p4.conv3x3_flat(jx, jk, TH=TH, ndot=ndot)
+    assert_close(cp.conv3x3_flat(tx, tk, TH=TH, ndot=ndot), want, dtype)
+
+
+def test_kmat_from_hwio_matches_the_probes_transpose():
+    _, k = data(5, 1, 8, 8, 3, 5)
+    want = jnp.transpose(jnp.asarray(k), (3, 0, 1, 2)).reshape(5, 27)
+    got = cp.kmat_from_hwio(torch.from_numpy(k))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_probes_refuse_what_the_probes_refuse():
+    x = torch.zeros(1, 12, 4, 32)  # NHCW, H = 12
+    k = torch.zeros(3, 3, 4, 8)
+    xp = torch.zeros(1, 14, 4, 32)
+    kmat = cp.kmat_from_hwio(k)
+    with pytest.raises(ValueError, match="TH = 8"):
+        cp.conv3x3_nhcw(x, k, TH=8)
+    with pytest.raises(ValueError, match="TH = 8"):
+        cp.conv3x3_nhcw_v2(x, k, TH=8)
+    with pytest.raises(ValueError, match="TH = 8"):
+        cp.conv3x3_flat(x.transpose(1, 2), k, TH=8)
+    with pytest.raises(ValueError, match="TH = 8"):
+        cp.conv3x3_nhcw_run("full", xp, kmat, TH=8)
+    with pytest.raises(ValueError, match="ndot"):
+        cp.conv3x3_flat(x.transpose(1, 2), k, TH=4, ndot=2)
+    with pytest.raises(ValueError, match="variant"):
+        cp.conv3x3_nhcw_run("dots", xp, kmat, TH=4)
+    with pytest.raises(ValueError, match="even"):
+        cp.conv3x3_nhcw_run("row2", xp, kmat, TH=3)
+    with pytest.raises(ValueError, match="asm-only"):
+        cp.conv3x3_nhcw_run("asm-only", xp[:, :, :1], torch.zeros(16, 9), TH=4)
+    with pytest.raises(ValueError, match="HWIO"):
+        cp.conv3x3_nhcw(x, k[:, :, :3], TH=4)
+
+
+def test_tiles_fit_the_shared_memory():
+    """The host's tile choice, on stand-in block sizes (the CUDA sources
+    report the real ones; ``test_torch_gpu.py`` holds those): the widest
+    tile that fits two blocks per SM, before a wider one that fits only
+    one; one block where only that fits; a clear error where nothing does
+    (then no launch)."""
+    assert cp.pick_size(cp.W_TILES, lambda t: 3000 * t, "x") == 32
+    assert cp.pick_size(cp.W_TILES, lambda t: 10_000 * t, "x") == 8
+    wt = cp.pick_size(cp.W_TILES[:-1], lambda t: 12_000 * t, "x")
+    assert wt == 16 and cp.SMEM_TWO < 12_000 * wt <= cp.SMEM_LIMIT
+    with pytest.raises(ValueError, match="P1 64->64: a tile of 8 needs .* shared memory"):
+        cp.pick_size(cp.W_TILES, lambda t: cp.SMEM_LIMIT + t, "P1 64->64")
+
+
+def test_probe_path_runs_on_cpu(capsys):
+    """The probe CLI on the CPU: every check shape through the plain
+    versions, held against F.conv2d; no time claimed."""
+    out = probe_conv.main(["--probe", "all", "--device", "cpu"])
+    n_checks = sum(len(v) for v in probe_conv.CHECKS.values())
+    assert len(out["checks"]) == n_checks and out["times"] == []
+    for rec in out["checks"]:
+        assert rec["rel_conv"] is None or rec["rel_conv"] <= 1e-5, rec
+    text = capsys.readouterr().out
+    assert text.count("not measured") == sum(len(v) for v in probe_conv.TIMES.values())
+
+
+def test_probe_path_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        probe_conv.main(["--probe", "1"])

@@ -106,7 +106,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
-        "                                    'mm_masking_tpu'))\n"
+        "                                    'mm_masking_tpu', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('mm_masking_tpu_torch')]))\n"
     )

@@ -277,6 +277,14 @@ def test_profile_step_runs_on_cpu(capsys):
     assert "device time not measured" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("entry", [train_icp_weights, profile_step])
+def test_cli_without_a_card_raises_naming_device_cpu(monkeypatch, entry):
+    """The CLIs run on the card by default and do not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        entry.main(["--synthetic"] if entry is train_icp_weights else [])
+
+
 def test_cli_overrides_parse_tuples():
     """Integer tuples as in the JAX CLI; icp_overrides, whose items are
     ``field=value`` strings, can be set too (the JAX CLI parses every tuple
