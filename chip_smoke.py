@@ -8,7 +8,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 1. env     torch/CUDA versions and the card's name and power limit; fails
            without a CUDA device.
 2. build   compiles ``mm_masking_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
-           one process per source.
+           one process per source; prints ptxas's registers and spills and
+           the count of HMMA (tensor-core) instructions in the SASS of each
+           instantiation of the float32 conv kernel, and fails if one has
+           none.
 3. kernels each CUDA kernel against its plain PyTorch version at the
            path's shapes: the 3x3 conv's forward, dx and dk at every UNet
            stage (f32 and bf16 at B = 4, dx and dk also f32 at the train
@@ -43,7 +46,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 Every kernel's row carries its bound (``timing.bound_ms``: the larger of
 its operations over the H100's peak for the input type and its bytes over
-3.35 TB/s, summed over the launches a row times) and, where one PyTorch
+3.35 TB/s, summed over the launches a row times; the convs' float32 work at
+the tensor cores' 3xTF32 rate, 495 / 3 TFLOP/s) and, where one PyTorch
 call computes the same function, that call's time (``library_ms``). The
 last two lines are a JSON object with the kernels' launches, errors and
 times, and the contract line ``{"ok": true, "device": {...}}``.
@@ -53,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,6 +71,7 @@ from mm_masking_tpu_torch.benchmarks.timing import bound_ms, cuda_ms, in_turns
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.geom import transform_points
+from mm_masking_tpu_torch.models.unet import conv3x3_shapes
 from mm_masking_tpu_torch.ops import kernels
 from mm_masking_tpu_torch.ops.kernels import nn_assoc
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
@@ -87,12 +93,14 @@ TRIM, TILE = 5.0, 256  # ICPConfig defaults: trim_dist, nn_stripe_tile
 
 # The CUDA kernels: row name → (source, the Pallas call it replaces, the
 # launch counters that count it). K2 serves the conv's forward and, on the
-# rotated and transposed weight, its backward's dx. One NN kernel has two
+# rotated and transposed weight, its backward's dx; its float32 kernel, the
+# one the default Config() runs, is conv3x3_tc.cu (bfloat16 runs the direct
+# kernel of conv3x3.cu). One NN kernel has two
 # launch modes: the sorted stripe (K4), which the eval and train steps run
 # every ICP iteration, and dense (K1), which the eval step runs with
 # nn_stripe=false. P2's row counts its five variants.
 KERNELS = {
-    "conv3x3": ("mm_masking_tpu_torch/csrc/conv3x3.cu",
+    "conv3x3": ("mm_masking_tpu_torch/csrc/conv3x3_tc.cu",
                 "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
     "conv3x3_dk": ("mm_masking_tpu_torch/csrc/conv3x3_dk.cu",
                    "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
@@ -124,31 +132,13 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def unet_conv_shapes(enc=(8, 16, 32, 64, 128, 256), width=640, cin=1):
-    """(Ci, Co, H) of the 32 3x3 convs of one UNet forward, in order."""
-    shapes, skips, h = [], [], width
-    for i, ch in enumerate(enc):
-        skips.append((cin, h))
-        shapes += [(cin, ch, h), (ch, ch, h)]
-        cin = ch
-        if i > 0:
-            h //= 2
-    for i in range(len(enc) - 1):
-        feat = enc[-2 - i]
-        h = skips[-1 - i][1]
-        for _ in range(2):  # each decoder block is applied twice
-            shapes += [(cin, feat, h), (feat, feat, h)]
-            cin = 2 * feat
-        cin = feat
-    return shapes
-
-
 def seq_bound(works) -> tuple[float, str]:
-    """The bound of a run of launches, each (operations, bytes, input type):
-    the sum of their bounds, and the term that binds most of it."""
+    """The bound of a run of conv launches, each (operations, bytes, input
+    type), at the tensor cores' rate for the type: the sum of their bounds,
+    and the term that binds most of it."""
     by = {"bytes": 0.0, "operations": 0.0}
     for ops, nbytes, dtype in works:
-        t, which = bound_ms(ops, nbytes, dtype)
+        t, which = bound_ms(ops, nbytes, dtype, matmul=True)
         by[which] += t
     return sum(by.values()), max(by, key=by.get)
 
@@ -165,6 +155,23 @@ def conv_works(shapes, batch) -> dict[str, list]:
             works["dx"].append((ops, io, torch.float32))
         works["dk"].append((ops, io, torch.float32))
     return works
+
+
+def check_hmma(lib) -> None:
+    """Count the HMMA (tensor-core mma) instructions in the SASS of each
+    instantiation of the float32 conv kernel; fail if one has none."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if "conv3x3_tf32x3_kernel" in name:
+            counts[name] = section.count("HMMA")
+    for name, n in counts.items():
+        log("build", f"{n} HMMA instructions in {name}")
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"the f32 conv kernel's SASS lacks HMMA instructions: {counts}")
 
 
 def check_conv(device, shapes) -> tuple[float, float, float]:
@@ -386,7 +393,7 @@ def run_slice(trainer: Trainer, params: dict, batch) -> dict:
     log("slice", f"launches {counts}")
     log("slice", f"err (norm, rot, trans) {err.tolist()} mean_num_non0 "
         f"{float(stats.mean_num_non0)} mean_w {float(stats.mean_w):.4f}")
-    n_conv = len(unet_conv_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
+    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
     if counts["conv3x3"] != n_conv:
         raise AssertionError(f"expected {n_conv} conv3x3 launches, got {counts['conv3x3']}")
     if counts["nn_stripe"] + counts["nn_argmin"] < 1:
@@ -512,7 +519,7 @@ def run_train(device, cfg: Config) -> tuple[dict, dict]:
     gnorms = [s[3].item() for s in steps]
     log("train", f"loss {losses} grad_norm {gnorms} components "
         f"{ {f: round(v.item(), 6) for f, v in steps[0][2]._asdict().items()} }")
-    n_conv = len(unet_conv_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
+    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
     want = {"conv3x3": n_conv, "conv3x3_dx": n_conv - 1, "conv3x3_dk": n_conv}
     for name, n in want.items():
         if counts[name] != TRAIN_STEPS * n:
@@ -620,11 +627,12 @@ def main() -> int:
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
+    check_hmma(info.path)
 
     cfg = Config()  # full width: enc 8…256 at 640², f32, pt2pt, refresh 0
     batch = synthetic_batch(1, BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
                             device=device)
-    shapes = unet_conv_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width)
+    shapes = conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width)
     conv_err, conv_ms, conv_plain = check_conv(device, shapes)
     bwd = check_conv_backward(device, shapes)
     dense = check_dense(batch)

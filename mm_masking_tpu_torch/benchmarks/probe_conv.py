@@ -200,7 +200,7 @@ def time_case(case: Case, device: torch.device) -> dict:
     err = held(case, x, k, out.pop("run"), out.pop("plain"), to_nchw)
     w = k.permute(3, 2, 0, 1).contiguous()
     bias = torch.zeros(case.Co, dtype=dtype, device=device)
-    bound, bound_by = bound_ms(case.flops, io_bytes(case, dtype), dtype)
+    bound, bound_by = bound_ms(case.flops, io_bytes(case, dtype), dtype, matmul=True)
     return {"label": case.label, "ms": ms, "plain_ms": plain_ms,
             "library_ms": cuda_ms(lambda: F.conv2d(x, w, padding=1)),
             "k2_ms": cuda_ms(lambda: conv3x3_forward(x, w, bias)),

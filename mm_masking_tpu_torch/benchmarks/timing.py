@@ -37,15 +37,21 @@ def in_turns(plain, kernel, timer) -> tuple[float, float]:
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W): HBM
 # bytes per second, and operations per second for each input type: float32
-# on the CUDA cores, bfloat16 (with float32 sums) on the tensor cores.
+# on the CUDA cores; for matrix products (a conv is one), float32 on the
+# tensor cores through 3xTF32 (three TF32 products for each float32 one, so
+# 495 / 3 TFLOP/s) and bfloat16 (with float32 sums) on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS_PER_S = {torch.float32: 67e12}
+PEAK_MATMUL_OPS_PER_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 
-def bound_ms(ops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
+def bound_ms(ops: float, nbytes: float, dtype: torch.dtype,
+             matmul: bool = False) -> tuple[float, str]:
     """The least time the card could take for work of ``ops`` operations on
     ``dtype`` inputs that must move ``nbytes`` (each input read once, each
-    output written once): (ms, "bytes" or "operations", whichever binds)."""
+    output written once): (ms, "bytes" or "operations", whichever binds).
+    ``matmul``: the work is a matrix product, which the tensor cores can
+    take at float32 accuracy."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = ops / (PEAK_MATMUL_OPS_PER_S if matmul else PEAK_OPS_PER_S)[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

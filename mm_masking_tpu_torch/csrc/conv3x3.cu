@@ -1,15 +1,17 @@
-// 3x3 SAME stride-1 convolution with bias and optional fused ReLU, NCHW.
+// 3x3 SAME stride-1 convolution with bias and optional fused ReLU, NCHW,
+// bfloat16 inputs with float32 sums.
 //
 // Replaces: mm_masking_tpu/ops/pallas/conv2d.py::_conv_nhcw_raw (kernel body
 // _fwd_kernel), the Pallas TPU kernel behind conv3x3_nhcw that carries every
-// UNet 3x3 conv. The TPU kernel ran in (B, H, C, W) so that W filled the
-// 128-wide lanes; on the GPU the port keeps PyTorch's NCHW.
+// UNet 3x3 conv, for bfloat16 inputs (model.dtype = "bfloat16"); float32
+// inputs run the tensor-core kernel of conv3x3_tc.cu. The TPU kernel ran in
+// (B, H, C, W) so that W filled the 128-wide lanes; on the GPU the port keeps
+// PyTorch's NCHW.
 //
 // What bounds it on this card: the UNet's convs are small-channel (Ci, Co of
-// 1..256) and run at 640^2..40^2. At Ci = Co = 8 a conv does 144 multiply-adds
-// per 64 bytes moved in f32, so the 640^2 stages sit near the HBM roofline;
-// from 32 channels on they are bound by fp32 issue rate, since this kernel
-// uses the CUDA cores, not the tensor cores.
+// 1..256) and run at 640^2..40^2. The 640^2 stages at 1..16 channels sit near
+// the HBM roofline; from 32 channels on they are bound by the fp32 issue
+// rate, since this kernel uses the CUDA cores, not the tensor cores.
 //
 // Design: one block computes a TH x TW = 16 x 32 output tile for a chunk of
 // CO_BLK output channels. It stages the input tile plus its 1-pixel halo,
@@ -18,11 +20,11 @@
 // (ci, tap, co). Each thread owns PIX = 4 vertically adjacent pixels of one
 // column and CO_BLK output channels in registers: per input channel it reads
 // 3 x 6 activations and 9 weight vectors (broadcast, as float4) from shared
-// memory for 4 * 9 * CO_BLK multiply-adds. Accumulation is in f32 registers
-// in any input type; the epilogue adds the bias, applies the ReLU and
-// rounds to the input type. Ci is handled as it comes (Ci = 1 runs one
-// channel, no padding to 8). Speed (tensor cores through wgmma, TMA,
-// double-buffered channel chunks) is work for later changes.
+// memory for 4 * 9 * CO_BLK multiply-adds. Accumulation is in f32 registers;
+// the epilogue adds the bias, applies the ReLU and rounds to bfloat16. Ci is
+// handled as it comes (Ci = 1 runs one channel, no padding to 8). Speed
+// (tensor cores through mma.sync m16n8k16 or wgmma, staging through a
+// cp.async or TMA ring) is work for later changes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -34,11 +36,9 @@ constexpr int PIX = 4;       // output rows per thread
 constexpr int CI_BLK = 8;    // input channels staged per shared-memory pass
 constexpr int THREADS = TW * (TH / PIX);
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
@@ -153,14 +153,6 @@ int launch(const T* x, const float* w, const float* bias, T* y, int B, int Ci,
 }
 
 }  // namespace
-
-extern "C" int mm_conv3x3_f32(const void* x, const void* w, const void* bias, void* y,
-                              int B, int Ci, int Co, int H, int W, int relu,
-                              void* stream) {
-  return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                static_cast<const float*>(bias), static_cast<float*>(y), B, Ci, Co,
-                H, W, relu, static_cast<cudaStream_t>(stream));
-}
 
 extern "C" int mm_conv3x3_bf16(const void* x, const void* w, const void* bias, void* y,
                                int B, int Ci, int Co, int H, int W, int relu,

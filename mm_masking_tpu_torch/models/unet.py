@@ -180,3 +180,21 @@ class UNet(nn.Module):
             x = block(torch.cat([skip, x], dim=1), generator)
         x = F.conv2d(x, self.final.weight.to(self.dtype), self.final.bias.to(self.dtype))
         return torch.sigmoid(x)[:, 0]
+
+
+def conv3x3_shapes(enc_channels: Sequence[int] = (8, 16, 32, 64, 128, 256),
+                   width: int = 640, in_channels: int = 1) -> list[tuple[int, int, int]]:
+    """(Ci, Co, H) of the 3×3 convs of one :class:`UNet` forward on a
+    width × width image, in the order they run (each decoder block twice)."""
+    shapes, skips, h, cin = [], [], width, in_channels
+    for i, ch in enumerate(enc_channels):
+        skips.append(h)
+        shapes += [(cin, ch, h), (ch, ch, h)]
+        cin = ch
+        if i > 0:  # the block's max-pool
+            h //= 2
+    for i, feat in enumerate(list(enc_channels)[-2::-1]):
+        h = skips[-1 - i]
+        shapes += [(cin, feat, h), (feat, feat, h), (2 * feat, feat, h), (feat, feat, h)]
+        cin = feat
+    return shapes

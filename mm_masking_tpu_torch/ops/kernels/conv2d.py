@@ -1,6 +1,8 @@
 """3×3 SAME stride-1 conv (+bias, optional fused ReLU) with its backward: the
-CUDA kernels ``csrc/conv3x3.cu`` (forward, and dx of the backward) and
-``csrc/conv3x3_dk.cu`` (weight gradient), and their plain PyTorch versions.
+CUDA kernels of K2 (forward, and dx of the backward: ``csrc/conv3x3_tc.cu``
+on the tensor cores through 3xTF32 for float32, ``csrc/conv3x3.cu`` for
+bfloat16) and K3 ``csrc/conv3x3_dk.cu`` (weight gradient), and their plain
+PyTorch versions.
 
 Counterpart of ``mm_masking_tpu.ops.pallas.conv2d.conv3x3_nhcw`` and its
 custom VJP. The port keeps PyTorch's NCHW layout and OIHW weights; the JAX
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mm_masking_tpu_torch.ops.kernels._build import launch, library, use_kernel
+from mm_masking_tpu_torch.ops.kernels._build import SMEM_LIMIT, launch, library, use_kernel
 
 _ENTRY = {torch.float32: "mm_conv3x3_f32", torch.bfloat16: "mm_conv3x3_bf16"}
 _DK_ENTRY = {torch.float32: "mm_conv3x3_dk_f32", torch.bfloat16: "mm_conv3x3_dk_bf16"}
@@ -56,9 +58,19 @@ def _launch_forward(x, weight, bias, relu):
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, got {x.dtype}")
     B, Ci, H, W = x.shape
     Co = weight.shape[0]
-    x = x.contiguous()  # a no-op inside the autograd Function
-    # (Co, Ci, kh, kw) → (Ci, 9, Co): one tap's output channels are contiguous.
-    w9 = weight.float().permute(1, 2, 3, 0).reshape(Ci, 9, Co).contiguous()
+    if x.dtype == torch.float32:
+        smem = library().mm_conv3x3_f32_smem_bytes(Co, W)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"conv3x3 f32 kernel: a block for Co={Co}, W={W} needs {smem} "
+                             f"bytes of shared memory, more than the {SMEM_LIMIT} it may have")
+        # (Co, Ci, kh, kw) → (9, Ci, Co), both channel counts zero-padded to
+        # a multiple of 8: one chunk's weights load as 16-byte vectors.
+        w9 = F.pad(weight.float().permute(2, 3, 1, 0).reshape(9, Ci, Co),
+                   (0, -Co % 8, 0, -Ci % 8))
+    else:
+        # (Co, Ci, kh, kw) → (Ci, 9, Co): one tap's output channels are contiguous.
+        w9 = weight.float().permute(1, 2, 3, 0).reshape(Ci, 9, Co)
+    x, w9 = x.contiguous(), w9.contiguous()  # x: a no-op inside the autograd Function
     b = bias.float().contiguous()
     y = torch.empty((B, Co, H, W), dtype=x.dtype, device=x.device)
     launch(_ENTRY[x.dtype], x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),

@@ -34,13 +34,12 @@ import types
 import torch
 import torch.nn.functional as F
 
-from mm_masking_tpu_torch.ops.kernels._build import launch, library, use_kernel
+from mm_masking_tpu_torch.ops.kernels._build import SMEM_LIMIT, launch, library, use_kernel
 
 # P2's variants, in the order of the Variant enum of csrc/conv_probe_nhcw.cu.
 VARIANTS = ("full", "asm-only", "dot-only", "row2", "tap-dots")
 RUN_COUNTERS = {v: types.SimpleNamespace(launches=0) for v in VARIANTS}
 
-SMEM_LIMIT = 232_448  # shared bytes a block may opt into on the H100
 SMEM_TWO = 115_712  # at most this much per block lets two blocks share an SM
 W_TILES = (128, 64, 32, 16, 8)  # column tiles of the NHCW kernels, widest first
 LANE_CHUNKS = (4096, 2048, 1024, 512, 256, 128, 64, 32)  # P4's lane chunks

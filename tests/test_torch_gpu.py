@@ -15,7 +15,9 @@ import torch
 from mm_masking_tpu_torch.benchmarks.probe_conv import CHECKS, FULL, Case, check
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
+from mm_masking_tpu_torch.models.unet import conv3x3_shapes
 from mm_masking_tpu_torch.ops.kernels import launch_counts, plain_versions, reset_launch_counts
+from mm_masking_tpu_torch.ops.kernels import conv2d as tconv
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from mm_masking_tpu_torch.ops.kernels._build import library
 from mm_masking_tpu_torch.ops.kernels.conv_probes import (
@@ -45,8 +47,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# W = H + 7. The float32 kernel's tile edges: Ci of 3 and 12 (chunks of 8
+# padded in shared memory), Co of 1, 12 and 72 (past one 64-channel block),
+# widths that are no multiple of 16 (W = 37) and multiples of 32 (W = 32, 64:
+# the 32-column tile).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 96), (16, 32, 50), (64, 64, 40), (256, 128, 20)])
+@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 96), (16, 32, 50), (64, 64, 40), (256, 128, 20),
+                                     (3, 12, 30), (12, 1, 25), (12, 72, 30), (72, 12, 57)])
 def test_conv3x3_kernel_matches_plain(cuda, Ci, Co, H, dtype):
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.standard_normal((2, Ci, H, H + 7)).astype(np.float32))
@@ -145,9 +152,11 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+# dx is K2 from Co to Ci channels: the same tile edges as the forward's.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Ci,Co,H", [(1, 8, 96), (3, 8, 50), (8, 1, 33), (8, 16, 40),
-                                     (16, 32, 50), (64, 64, 40), (256, 128, 20)])
+                                     (16, 32, 50), (64, 64, 40), (256, 128, 20),
+                                     (12, 3, 30), (1, 12, 25), (72, 12, 30), (12, 72, 57)])
 def test_conv3x3_backward_kernels_match_plain(cuda, Ci, Co, H, dtype):
     rng = np.random.default_rng(15)
     x = torch.from_numpy(rng.standard_normal((2, Ci, H, H + 7)).astype(np.float32))
@@ -166,6 +175,26 @@ def test_conv3x3_backward_kernels_match_plain(cuda, Ci, Co, H, dtype):
     assert dx.dtype == dtype and dx.shape == x.shape
     # f32: summation order; bf16: one rounding of the result to 8 bits.
     assert rel_err(dx, conv3x3_dx_plain(dy, w)) <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_conv3x3_f32_blocks_fit_the_shared_memory(cuda):
+    """The float32 kernel's block at each UNet stage shape, as the forward
+    (Co outputs) and as dx (Ci outputs), fits the 227 KB a block may have."""
+    smem = library().mm_conv3x3_f32_smem_bytes
+    sizes = {smem(c, h) for ci, co, h in conv3x3_shapes() for c in (ci, co)}
+    assert all(0 < s <= SMEM_LIMIT for s in sizes), sizes
+
+
+def test_conv3x3_f32_refuses_before_launching(cuda, monkeypatch):
+    """A float32 shape the kernel cannot take raises before any launch; it is
+    not handed to the direct kernel or to cuDNN."""
+    x = torch.zeros((1, 8, 16, 16), device=cuda)
+    w, b = torch.zeros((8, 8, 3, 3), device=cuda), torch.zeros(8, device=cuda)
+    monkeypatch.setattr(tconv, "SMEM_LIMIT", 1024)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        conv3x3(x, w, b)
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("Ci,Co,H,W", [(1, 8, 320, 320), (256, 256, 40, 40)])

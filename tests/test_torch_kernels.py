@@ -12,9 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from mm_masking_tpu.ops.pallas import nn_assoc as jnn
 from mm_masking_tpu.ops.pallas.conv2d import _dk_nhcw_raw, _pad_cw, _pick_th, conv3x3_nhcw
+from mm_masking_tpu_torch.benchmarks.timing import bound_ms
 from mm_masking_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from mm_masking_tpu_torch.ops.kernels._build import use_kernel
@@ -53,6 +55,52 @@ def test_conv3x3_matches_pallas(Ci, Co, relu, dtype):
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                    atol=2e-2 * np.abs(want).max())
+
+
+def tf32(a: np.ndarray) -> np.ndarray:
+    """float32 → TF32 as ``cvt.rna.tf32.f32`` rounds it: the 13 low mantissa
+    bits rounded off, ties away from zero."""
+    bits = a.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("Ci,Co", [(8, 8), (64, 64)])
+def test_3xtf32_keeps_float32_accuracy(Ci, Co):
+    """The arithmetic of the float32 conv kernel (csrc/conv3x3_tc.cu),
+    emulated: each operand split into big = tf32(v) and small = tf32(v − big),
+    the products small·big, big·small and big·big summed in float32 (a
+    product of two TF32 values is exact in float32). Against a float64 conv
+    it stays within 1e-5 of max |y|; one TF32 product, big·big alone, does
+    not stay within the conv's 1e-4 limit, which is why the kernel splits."""
+    x, k, _ = conv_inputs(11, 1, 12, 20, Ci, Co)
+    w = np.ascontiguousarray(k.transpose(3, 2, 0, 1))  # HWIO → OIHW
+
+    def conv(a, b):
+        return F.conv2d(torch.from_numpy(a), torch.from_numpy(b), padding=1)
+
+    x_big, w_big = tf32(x), tf32(w)
+    x_small, w_small = tf32(x - x_big), tf32(w - w_big)
+    y3 = conv(x_small, w_big) + conv(x_big, w_small) + conv(x_big, w_big)
+    y1 = conv(x_big, w_big)
+    y64 = F.conv2d(torch.from_numpy(x).double(), torch.from_numpy(w).double(), padding=1)
+    scale = y64.abs().max().item()
+    assert np.array_equal(tf32(x_big), x_big) and np.abs(x_small).max() <= 2.0 ** -11 * np.abs(x).max()
+    assert (y3.double() - y64).abs().max().item() <= 1e-5 * scale
+    assert (y1.double() - y64).abs().max().item() > 1e-4 * scale
+
+
+def test_bound_ms_rates():
+    """The H100's peaks behind every kernel's bound: 3.35 TB/s; float32 at
+    67 TFLOP/s on the CUDA cores; matrix work on the tensor cores, float32
+    through 3xTF32 at 495 / 3 TFLOP/s and bfloat16 at 989."""
+    assert bound_ms(0.0, 3.35e9, torch.float32) == pytest.approx((1.0, "bytes"))
+    assert bound_ms(67e9, 1.0, torch.float32) == pytest.approx((1.0, "operations"))
+    assert bound_ms(165e9, 1.0, torch.float32, matmul=True) == pytest.approx((1.0, "operations"))
+    assert bound_ms(989e9, 1.0, torch.bfloat16, matmul=True) == pytest.approx((1.0, "operations"))
+    # One B=16 forward of 8 -> 8 at 640^2 moves 419 MB and is bound by them.
+    ops, nbytes = 18 * 8 * 8 * 16 * 640 * 640, 4 * 16 * 640 * 640 * 16
+    t, by = bound_ms(ops, nbytes, torch.float32, matmul=True)
+    assert by == "bytes" and t == pytest.approx(0.1252, abs=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -13,7 +13,7 @@ from mm_masking_tpu.models.policy import LearnICPWeightPolicy as JPolicy
 from mm_masking_tpu.models.unet import UNet as JUNet, upsample_bilinear_align_corners as jup
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.models import LearnICPWeightPolicy, UNet, params_from_flax
-from mm_masking_tpu_torch.models.unet import upsample_bilinear_align_corners
+from mm_masking_tpu_torch.models.unet import conv3x3_shapes, upsample_bilinear_align_corners
 
 ATOL = 1e-5
 
@@ -83,3 +83,24 @@ def test_policy_mask_matches_jax(normalize, conv_impl, W):
                          mask_only=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
     assert float(got.max()) == 1.0
+
+
+
+@pytest.mark.parametrize("enc,H", [((8, 16, 32), 32), ((4, 8, 16, 32), 48)])
+def test_conv3x3_shapes_are_the_unets(enc, H, monkeypatch):
+    """conv3x3_shapes lists the (Ci, Co, H) of every 3×3 conv a forward runs,
+    in order: the shapes the conv kernels are checked and timed at."""
+    import mm_masking_tpu_torch.models.unet as unet_module
+
+    seen, real = [], unet_module.conv3x3
+
+    def spy(x, weight, bias, relu=False):
+        seen.append((x.shape[1], weight.shape[0], x.shape[2]))
+        return real(x, weight, bias, relu)
+
+    monkeypatch.setattr(unet_module, "conv3x3", spy)
+    net = UNet(1, enc, dropout=0.0)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net(torch.rand(1, 1, H, H))
+    assert seen == conv3x3_shapes(enc, H)
