@@ -20,22 +20,31 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            map with mixed block counts, zeros included; then the median time
            of each next to its plain version: the forward and NN at the
            eval step's B = 32, the conv's forward, dx and dk at the train
-           step's B = 16.
+           step's B = 16, in float32 and (beside cuDNN's own bfloat16 call)
+           in bfloat16.
 4. slice   ``Trainer.eval_step`` at the default ``Config()`` (full-width UNet,
            640x640, f32, pt2pt, 50-iteration stripe ICP) on a 32-item
            synthetic batch of 4096 scan and 16384 map points, with seeded
-           random weights. The launch counters must show the kernels ran;
-           the poses must match the same step run with the plain versions.
-           Then the same step with the dense association
-           (``icp_overrides=("nn_stripe=false",)``), the path of K1.
+           random weights; its solve replays CUDA graphs of 5 iterations and
+           reads the stop test at most 10 times. The launch counters must
+           show the kernels ran; the poses must match the same step run
+           eagerly on the kernels (same iteration count, 1e-6 m, 1e-5 deg)
+           and with the plain versions. Then the same step with the dense
+           association (``icp_overrides=("nn_stripe=false",)``), the path of
+           K1. Each step is timed on the graph, eager and plain paths.
 5. train   ``Trainer.train_step`` at the default ``Config()`` (dropout 0.05,
            10 unrolled ICP iterations, Adam at 1e-4) on a 16-item synthetic
-           batch of 4096 / 16384 points, 3 steps. The counters must show
-           every conv forward, dx and dk and at least 10 NN launches per
-           step; loss, gradients and updated parameters must be finite; the
+           batch of 4096 / 16384 points: the step captured as a CUDA graph,
+           then 3 replays. The counters must show every conv forward, dx and
+           dk and at least 10 NN launches per step; loss, gradients and
+           updated parameters must be finite; the 3 steps must match 3
+           eager kernel-path steps from the same seed (loss and grad_norm
+           within 1e-6 relative, parameters within 1e-5 of max |p|); the
            first step's loss and grad_norm must match the plain path's; a
            full-width UNet gradient must match the plain path's; then the
-           median step time of both paths and their peak device memory.
+           host-clock step of the graph, eager and plain paths and their
+           peak device memory (the graph's pool included). Then the same
+           with ``model.dtype="bfloat16"``: 3 replays, finite, timed.
 6. probes  the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
            each probe kernel P1-P4 and each of P2's five variants against
            its plain version at the probes' check shapes (f32) and at
@@ -47,13 +56,15 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 Every kernel's row carries its bound (``timing.bound_ms``: the larger of
 its operations over the H100's peak for the input type and its bytes over
 3.35 TB/s, summed over the launches a row times; the convs' float32 work at
-the tensor cores' 3xTF32 rate, 495 / 3 TFLOP/s) and, where one PyTorch
+the tensor cores' 3xTF32 rate, 495 / 3 TFLOP/s, and bfloat16 at 989) and,
+where one PyTorch
 call computes the same function, that call's time (``library_ms``). The
 last two lines are a JSON object with the kernels' launches, errors and
 times, and the contract line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -64,12 +75,14 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from mm_masking_tpu_torch.benchmarks import probe_conv
 from mm_masking_tpu_torch.benchmarks.timing import bound_ms, cuda_ms, in_turns
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
+from mm_masking_tpu_torch.dicp.icp import STOP_TEST_EVERY
 from mm_masking_tpu_torch.geom import transform_points
 from mm_masking_tpu_torch.models.unet import conv3x3_shapes
 from mm_masking_tpu_torch.ops import kernels
@@ -94,16 +107,22 @@ TRIM, TILE = 5.0, 256  # ICPConfig defaults: trim_dist, nn_stripe_tile
 # The CUDA kernels: row name → (source, the Pallas call it replaces, the
 # launch counters that count it). K2 serves the conv's forward and, on the
 # rotated and transposed weight, its backward's dx; its float32 kernel, the
-# one the default Config() runs, is conv3x3_tc.cu (bfloat16 runs the direct
-# kernel of conv3x3.cu). One NN kernel has two
-# launch modes: the sorted stripe (K4), which the eval and train steps run
-# every ICP iteration, and dense (K1), which the eval step runs with
-# nn_stripe=false. P2's row counts its five variants.
+# one the default Config() runs, is conv3x3_tc.cu, and bfloat16 runs the
+# direct kernel of conv3x3.cu, a row of its own (as is K3's bfloat16 entry):
+# the float32 and bfloat16 paths count their launches in separate phases
+# (ROW_PHASES). One NN kernel has two launch modes: the sorted stripe (K4),
+# which the eval and train steps run every ICP iteration, and dense (K1),
+# which the eval step runs with nn_stripe=false. P2's row counts its five
+# variants.
 KERNELS = {
     "conv3x3": ("mm_masking_tpu_torch/csrc/conv3x3_tc.cu",
                 "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
     "conv3x3_dk": ("mm_masking_tpu_torch/csrc/conv3x3_dk.cu",
                    "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
+    "conv3x3_bf16": ("mm_masking_tpu_torch/csrc/conv3x3.cu",
+                     "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
+    "conv3x3_dk_bf16": ("mm_masking_tpu_torch/csrc/conv3x3_dk.cu",
+                        "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
     "nn_stripe": ("mm_masking_tpu_torch/csrc/nn_assoc.cu",
                   "mm_masking_tpu/ops/pallas/nn_assoc.py:358", ("nn_stripe",)),
     "nn_argmin": ("mm_masking_tpu_torch/csrc/nn_assoc.cu",
@@ -117,6 +136,17 @@ KERNELS = {
                         "benchmarks/probe_pallas_conv3.py:80", ("conv3x3_nhcw_v2",)),
     "conv3x3_flat": ("mm_masking_tpu_torch/csrc/conv_probe_flat.cu",
                      "benchmarks/probe_pallas_conv4.py:104", ("conv3x3_flat",)),
+}
+# The counted main-path runs whose launches each row sums: the eval step and
+# its dense variant, the train steps, the bfloat16 train steps and the probe
+# timing (whose bfloat16 K2 yardstick is the bfloat16 K2 row's).
+ROW_PHASES = {
+    "conv3x3": ("slice", "dense", "train"),
+    "conv3x3_dk": ("train",),
+    "conv3x3_bf16": ("train_bf16", "probes"),
+    "conv3x3_dk_bf16": ("train_bf16",),
+    "nn_stripe": ("slice", "dense", "train", "train_bf16"),
+    "nn_argmin": ("slice", "dense", "train", "train_bf16"),
 }
 # Each probe's row is timed at the canonical low-channel stage (B = 16, 640^2,
 # 16 -> 16, bf16) with the probe's own default tile.
@@ -143,17 +173,20 @@ def seq_bound(works) -> tuple[float, str]:
     return sum(by.values()), max(by, key=by.get)
 
 
-def conv_works(shapes, batch) -> dict[str, list]:
-    """(operations, bytes, type) of one step's f32 convs at ``batch``: the
+def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
+    """(operations, bytes, type) of one step's convs at ``batch``: the
     forward (x, weight and bias in, y out), dx (dy and weight in, dx out;
-    every conv but the first) and dk (x and dy in, dk out)."""
+    every conv but the first) and dk (x and dy in, dk out). Activations take
+    ``dtype``'s bytes, the weights (and dk) float32's."""
     works = {"fwd": [], "dx": [], "dk": []}
+    elem = torch.finfo(dtype).bits // 8
     for i, (ci, co, h) in enumerate(shapes):
-        ops, io = 18 * ci * co * batch * h * h, 4 * (batch * h * h * (ci + co) + 9 * ci * co)
-        works["fwd"].append((ops, io + 4 * co, torch.float32))
+        ops = 18 * ci * co * batch * h * h
+        io = elem * batch * h * h * (ci + co) + 4 * 9 * ci * co
+        works["fwd"].append((ops, io + 4 * co, dtype))
         if i > 0:
-            works["dx"].append((ops, io, torch.float32))
-        works["dk"].append((ops, io, torch.float32))
+            works["dx"].append((ops, io, dtype))
+        works["dk"].append((ops, io, dtype))
     return works
 
 
@@ -174,12 +207,12 @@ def check_hmma(lib) -> None:
         raise AssertionError(f"the f32 conv kernel's SASS lacks HMMA instructions: {counts}")
 
 
-def check_conv(device, shapes) -> tuple[float, float, float]:
+def check_conv(device, shapes) -> tuple[float, float, float, float]:
     """Conv kernel vs plain at every UNet stage shape; returns (max f32 abs
-    error, kernel ms, plain ms) with the times summed over one forward's
-    convs at B = 32."""
+    error, max bf16 abs error, kernel ms, plain ms) with the times summed
+    over one forward's convs at B = 32."""
     g = torch.Generator().manual_seed(0)
-    err32 = 0.0
+    err32 = err16 = 0.0
     for ci, co, h in sorted(set(shapes)):
         x = torch.randn(CHECK_BATCH, ci, h, h, generator=g)
         w = torch.randn(co, ci, 3, 3, generator=g) * math.sqrt(2.0 / (9 * (ci + co)))
@@ -200,6 +233,8 @@ def check_conv(device, shapes) -> tuple[float, float, float]:
                 raise AssertionError(f"conv3x3 {ci}->{co} @{h} {dtype}: {rel} > {tol}")
             if dtype == torch.float32:
                 err32 = max(err32, err)
+            else:
+                err16 = max(err16, err)
     ms = plain_ms = 0.0
     for ci, co, h in sorted(set(shapes)):
         n = shapes.count((ci, co, h))
@@ -212,7 +247,7 @@ def check_conv(device, shapes) -> tuple[float, float, float]:
             f"kernel {k:.3f} ms, plain {p:.3f} ms")
         ms += n * k
         plain_ms += n * p
-    return err32, ms, plain_ms
+    return err32, err16, ms, plain_ms
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -223,7 +258,7 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 def check_backward(x, dy, w, label: str) -> tuple[float, float]:
     """dx (K2) and dk (K3) vs their plain versions on one set of tensors, dk
     also bitwise across two runs and against a float64 sum; raises beyond
-    the limits and returns the float32 (max |Δdx|, max |Δdk|) (0 for bf16)."""
+    the limits and returns (max |Δdx|, max |Δdk|)."""
     dk = conv3x3_dk(x, dy)
     if not torch.equal(dk, conv3x3_dk(x, dy)):
         raise AssertionError(f"conv3x3_dk {label}: two runs differ")
@@ -244,9 +279,7 @@ def check_backward(x, dy, w, label: str) -> tuple[float, float]:
     if e_dk > 1e-4 or e64 > 1e-5 or e_dx > (2e-2 if bf else 1e-4):
         raise AssertionError(f"conv backward {label}: dx {e_dx}, dk {e_dk}, dk vs "
                              f"float64 {e64}")
-    if bf:
-        return 0.0, 0.0
-    return (dx - dx_p).abs().max().item(), (dk - dk_p).abs().max().item()
+    return (dx.float() - dx_p.float()).abs().max().item(), (dk - dk_p).abs().max().item()
 
 
 def check_conv_backward(device, shapes) -> dict[str, float]:
@@ -255,12 +288,13 @@ def check_conv_backward(device, shapes) -> dict[str, float]:
     forward, dx and dk times next to their plain versions at B = 16, summed
     over one step (the first conv takes no dx: its input needs no gradient)."""
     g = torch.Generator().manual_seed(1)
-    worst = {"dx_abs": 0.0, "dk_abs": 0.0}
+    worst = {"dx_abs": 0.0, "dk_abs": 0.0, "dx_abs_bf16": 0.0, "dk_abs_bf16": 0.0}
 
     def check(x, dy, w, label):
         dx_abs, dk_abs = check_backward(x, dy, w, label)
-        worst["dx_abs"] = max(worst["dx_abs"], dx_abs)
-        worst["dk_abs"] = max(worst["dk_abs"], dk_abs)
+        suffix = "_bf16" if x.dtype == torch.bfloat16 else ""
+        worst["dx_abs" + suffix] = max(worst["dx_abs" + suffix], dx_abs)
+        worst["dk_abs" + suffix] = max(worst["dk_abs" + suffix], dk_abs)
 
     for ci, co, h in sorted(set(shapes)):
         x = torch.randn(CHECK_BATCH, ci, h, h, generator=g)
@@ -294,6 +328,45 @@ def check_conv_backward(device, shapes) -> dict[str, float]:
         f"forward {ms['fwd']:.2f} / {ms['fwd_plain']:.2f}, dx {ms['dx']:.2f} / "
         f"{ms['dx_plain']:.2f}, dk {ms['dk']:.2f} / {ms['dk_plain']:.2f}")
     return {**worst, **ms}
+
+
+def time_conv_bf16(device, shapes) -> dict[str, float]:
+    """One bfloat16 train step's forward, dx and dk at B = 16, stage by
+    stage: the kernels beside their plain versions (float32 cuDNN on the
+    widened inputs) and beside cuDNN's own bfloat16 calls (``F.conv2d``,
+    ``conv2d_weight``), in turns; ms summed over the step's convs."""
+    first, gd = shapes[0], torch.Generator(device=device).manual_seed(4)
+    keys = [f"{job}{path}" for job in ("fwd", "dx", "dk") for path in ("", "_plain", "_lib")]
+    ms = dict.fromkeys(keys, 0.0)
+    for ci, co, h in sorted(set(shapes)):
+        n = shapes.count((ci, co, h))
+        n_dx = n - int((ci, co, h) == first)
+        x = torch.randn(TRAIN_BATCH, ci, h, h, generator=gd, device=device).bfloat16()
+        dy = torch.randn(TRAIN_BATCH, co, h, h, generator=gd, device=device).bfloat16()
+        w = (torch.randn(co, ci, 3, 3, generator=gd, device=device) * math.sqrt(
+            2.0 / (9 * (ci + co)))).bfloat16()
+        b = torch.zeros(co, device=device, dtype=torch.bfloat16)
+        jobs = {
+            "fwd": (lambda: conv3x3_forward(x, w, b, True), lambda: conv3x3_plain(x, w, b, True),
+                    lambda: torch.relu(F.conv2d(x, w, b, padding=1))),
+            "dx": (lambda: conv3x3_dx(dy, w), lambda: conv3x3_dx_plain(dy, w),
+                   lambda: torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1)),
+            "dk": (lambda: conv3x3_dk(x, dy), lambda: conv3x3_dk_plain(x, dy),
+                   lambda: torch.nn.grad.conv2d_weight(x, w.shape, dy, padding=1)),
+        }
+        row = {}
+        for job, (kernel, plain, lib) in jobs.items():
+            k, lib_ms = in_turns(lib, kernel, cuda_ms)
+            row[job] = (k, cuda_ms(plain), lib_ms)
+            for path, t in zip(("", "_plain", "_lib"), row[job]):
+                ms[job + path] += (n_dx if job == "dx" else n) * t
+        log("kernels", f"bf16 B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 x{n} (ms, kernel / "
+            f"plain / cuDNN bf16): " + ", ".join(
+                f"{job} {k:.3f} / {p:.3f} / {lb:.3f}" for job, (k, p, lb) in row.items()))
+    log("kernels", f"one bf16 train step's convs at B={TRAIN_BATCH} (ms, kernel / plain / cuDNN "
+        f"bf16): " + ", ".join(f"{job} {ms[job]:.2f} / {ms[job + '_plain']:.2f} / "
+                               f"{ms[job + '_lib']:.2f}" for job in ("fwd", "dx", "dk")))
+    return ms
 
 
 def nn_inputs(batch):
@@ -378,11 +451,12 @@ def yaw_deg(R: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(torch.atan2(R[..., 1, 0], R[..., 0, 0]))
 
 
-def run_slice(trainer: Trainer, params: dict, batch) -> dict:
-    """``Trainer.eval_step`` checked against the plain path; returns the
-    counters of the main path's step."""
+def run_slice(trainer: Trainer, params: dict, batch) -> tuple[dict, dict]:
+    """``Trainer.eval_step`` checked against the eager kernel path and the
+    plain path; returns the counters of the main path's step and the
+    solve's iterations and stop-test reads."""
     cfg = trainer.cfg
-    trainer.eval_step(params, batch)  # warm-up: allocator, cuDNN plans
+    trainer.eval_step(params, batch)  # warm-up: captures the solve's graph; allocator
     torch.cuda.synchronize()
 
     # The main path, through the user's entry point, with counters from 0.
@@ -410,13 +484,32 @@ def run_slice(trainer: Trainer, params: dict, batch) -> dict:
         out = trainer.policy.apply(params, loc, mp, T0)
         torch.cuda.synchronize()
         nn_launches = sum(kernels.launch_counts()[k] for k in ("nn_stripe", "nn_argmin"))
+        with kernels.eager():
+            eager = trainer.policy.apply(params, loc, mp, T0)
         with kernels.plain_versions():
             ref = trainer.policy.apply(params, loc, mp, T0)
-    iters = out.icp_info["iterations"]
-    log("slice", f"ICP iterations {iters} (plain path {ref.icp_info['iterations']}), "
-        f"NN launches {nn_launches}")
+    iters, stop_tests = int(out.icp_info["iterations"]), out.icp_info["stop_tests"]
+    max_iter = cfg.model.inference_max_iter
+    log("slice", f"ICP iterations {iters} (eager {int(eager.icp_info['iterations'])}, plain "
+        f"path {int(ref.icp_info['iterations'])}), NN launches {nn_launches}; the solve read "
+        f"its stop test {stop_tests} times (chunks of {STOP_TEST_EVERY} iterations, at most "
+        f"{math.ceil(max_iter / STOP_TEST_EVERY)})")
     if nn_launches < iters:
         raise AssertionError(f"{nn_launches} NN launches for {iters} ICP iterations")
+    if stop_tests > math.ceil(max_iter / STOP_TEST_EVERY):
+        raise AssertionError(f"{stop_tests} stop-test reads for {max_iter} iterations")
+    # The same kernels on the same inputs, replayed or launched one by one.
+    # Each pose's own yaw: the yaw of R·R_eagerᵀ would read ~1e-7 rad of
+    # float32 rounding even for equal poses.
+    dt_e = (out.T_pred[:, :3, 3] - eager.T_pred[:, :3, 3]).norm(dim=-1).max().item()
+    dyaw_e = (yaw_deg(out.T_pred[:, :3, :3]) - yaw_deg(eager.T_pred[:, :3, :3])).abs()
+    log("slice", f"graph vs eager kernel path: every item max |dt|={dt_e:.3e} m, max "
+        f"|dyaw|={dyaw_e.max().item():.3e} deg, poses bitwise equal "
+        f"{bool(torch.equal(out.T_pred, eager.T_pred))}")
+    if (iters != int(eager.icp_info["iterations"]) or dt_e > 1e-6
+            or dyaw_e.max().item() > 1e-5):
+        raise AssertionError("graph and eager eval solves differ beyond equal iterations, "
+                             "1e-6 m / 1e-5 deg")
     conv = (out.icp_info["delta_norm"] < 1e-5) & (ref.icp_info["delta_norm"] < 1e-5)
     dt = (out.T_pred[:, :3, 3] - ref.T_pred[:, :3, 3]).norm(dim=-1)
     dyaw = yaw_deg(out.T_pred[:, :3, :3] @ ref.T_pred[:, :3, :3].transpose(1, 2)).abs()
@@ -429,34 +522,50 @@ def run_slice(trainer: Trainer, params: dict, batch) -> dict:
             f"|dt| {dt[~conv].tolist()} m, |dyaw| {dyaw[~conv].tolist()} deg")
     if not conv.any() or dt[conv].max().item() > 1e-3 or dyaw[conv].max().item() > 5e-3:
         raise AssertionError("kernel and plain poses differ beyond 1 mm / 0.005 deg")
-    return counts
+    return counts, {"iterations": iters, "stop_tests": stop_tests}
 
 
-def time_eval(trainer: Trainer, params: dict, batch) -> tuple[float, float]:
-    """(kernel-path ms, plain-path ms) of ``Trainer.eval_step``, each the
-    median of 3 steps on the host clock, in turns."""
+PATHS = {"graph": contextlib.nullcontext, "eager": kernels.eager,
+         "plain": kernels.plain_versions}
 
-    def step_ms(plain: bool, reps: int = 3) -> float:
-        """Median host-clock ms of `reps` steps, each ending in a synchronise."""
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if plain:
-                with kernels.plain_versions():
-                    trainer.eval_step(params, batch)
-            else:
-                trainer.eval_step(params, batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
 
-    k_ms, p_ms = in_turns(lambda: step_ms(True), lambda: step_ms(False), lambda f: f())
+def spread(times: list[float]) -> str:
+    return (f"median {statistics.median(times):.1f} ms (min {min(times):.1f}, max "
+            f"{max(times):.1f}, n {len(times)})")
+
+
+def three_paths(turn) -> dict[str, list[float]]:
+    """``turn(path)`` (a list of host-clock ms) on the graph path (CUDA graphs
+    on the kernels), the eager kernel path and the plain path, in turns
+    plain, eager, graph, graph, eager, plain: {path: every time}."""
+    times = {path: [] for path in PATHS}
+    for path in ("plain", "eager", "graph", "graph", "eager", "plain"):
+        with PATHS[path]():
+            times[path] += turn(path)
+    return times
+
+
+def host_ms(fn, reps: int = 3) -> list[float]:
+    """Host-clock ms of `reps` calls of fn, each ending in a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def time_eval(trainer: Trainer, params: dict, batch) -> dict[str, list[float]]:
+    """Host-clock ms of ``Trainer.eval_step`` on the three paths, 3 steps a
+    turn (the graph path's graphs are captured already)."""
+    times = three_paths(lambda path: host_ms(lambda: trainer.eval_step(params, batch)))
     log("slice", f"eval_step B={len(batch['transforms']['T_ml_init'])} "
         f"{trainer.cfg.model.cart_pixel_width}^2 N={batch['loc_data']['raw_pc'].shape[1]} "
-        f"M={batch['map_data']['pc'].shape[1]}, median of 3 in turns: kernel path "
-        f"{k_ms:.1f} ms, plain path {p_ms:.1f} ms")
-    return k_ms, p_ms
+        f"M={batch['map_data']['pc'].shape[1]}, host clock: " + "; ".join(
+            f"{path} {spread(t)}" for path, t in times.items()))
+    return times
 
 
 def check_unet_gradient(device, trainer: Trainer, params: dict) -> float:
@@ -498,27 +607,52 @@ def check_unet_gradient(device, trainer: Trainer, params: dict) -> float:
     return errs[worst]
 
 
-def run_train(device, cfg: Config) -> tuple[dict, dict]:
-    """``Trainer.train_step`` at full width, B = 16; returns (the counters of
-    the main path's 3 steps, measured numbers)."""
-    trainer = Trainer(cfg, device)
-    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
-                            device=device)
-    trainer.train_step(trainer.init_state(seed=1), batch)  # warm-up: allocator, plans
-    torch.cuda.synchronize()
+def time_train(trainer: Trainer, batch, label: str) -> dict[str, tuple[list[float], float]]:
+    """Host-clock ms of 3 ``Trainer.train_step`` calls a turn on each path
+    from a fresh state (the graph path's capture made first, outside the
+    time), with each path's peak device memory in MiB (the graph's memory
+    pool and its capture included): {path: (times, peak)}."""
+    peaks = {}
 
+    def turn(path):
+        state = trainer.init_state(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.capture_train_step(state, batch)
+        times = host_ms(lambda: trainer.train_step(state, batch))
+        peaks[path] = max(peaks.get(path, 0.0), torch.cuda.max_memory_allocated() / 2**20)
+        return times
+
+    times = three_paths(turn)
+    width = trainer.cfg.model.cart_pixel_width
+    log(label, f"train_step B={TRAIN_BATCH} {width}^2 N={N_SCAN} M={N_MAP} "
+        f"{trainer.cfg.model.dtype}, host clock: " + "; ".join(
+            f"{path} {spread(t)}, peak {peaks[path]:.0f} MiB" for path, t in times.items()))
+    return {path: (t, peaks[path]) for path, t in times.items()}
+
+
+def captured_steps(trainer: Trainer, batch, label: str):
+    """Capture the train step for a fresh state, then run 3 steps (replays)
+    with the counters from 0: (state, its parameters before and after the
+    first step, the steps, the counters)."""
     state = trainer.init_state(seed=0)
     p0 = {k: v.detach().clone() for k, v in state.params.items()}
+    t0 = time.perf_counter()
+    trainer.capture_train_step(state, batch)
+    torch.cuda.synchronize()
+    (graph,) = state.graphs.values()
+    log(label, f"captured the train step in {time.perf_counter() - t0:.2f} s (warm-up "
+        f"included): {sum(graph.step.launches.values())} launches of the port's kernels per "
+        f"replay, {graph.step.launches}")
     # The main path, through the user's entry point, with counters from 0.
     kernels.reset_launch_counts()
-    steps = [trainer.train_step(state, batch) for _ in range(TRAIN_STEPS)]
+    steps = [trainer.train_step(state, batch)]
+    p1 = {k: v.detach().clone() for k, v in state.params.items()}
+    steps += [trainer.train_step(state, batch) for _ in range(TRAIN_STEPS - 1)]
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    log("train", f"launches over {TRAIN_STEPS} steps {counts}")
-    losses = [s[1].item() for s in steps]
-    gnorms = [s[3].item() for s in steps]
-    log("train", f"loss {losses} grad_norm {gnorms} components "
-        f"{ {f: round(v.item(), 6) for f, v in steps[0][2]._asdict().items()} }")
+    log(label, f"launches over {TRAIN_STEPS} steps {counts}")
+    cfg = trainer.cfg
     n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
     want = {"conv3x3": n_conv, "conv3x3_dx": n_conv - 1, "conv3x3_dk": n_conv}
     for name, n in want.items():
@@ -529,16 +663,66 @@ def run_train(device, cfg: Config) -> tuple[dict, dict]:
     if n_nn < TRAIN_STEPS * cfg.model.max_iter:
         raise AssertionError(f"{n_nn} NN launches for {TRAIN_STEPS} steps of "
                              f"{cfg.model.max_iter} ICP iterations")
-    if not all(map(math.isfinite, losses + gnorms)) or state.opt.total_notfinite:
+    losses = [s[1].item() for s in steps]
+    gnorms = [s[3].item() for s in steps]
+    log(label, f"loss {losses} grad_norm {gnorms} components "
+        f"{ {f: round(v.item(), 6) for f, v in steps[0][2]._asdict().items()} }")
+    if not all(map(math.isfinite, losses + gnorms)) or int(state.opt.total_notfinite):
         raise AssertionError(f"non-finite step: loss {losses}, grad_norm {gnorms}, "
-                             f"{state.opt.total_notfinite} updates dropped")
+                             f"{int(state.opt.total_notfinite)} updates dropped")
     moved = {k: (state.params[k] - p0[k]).abs().max().item() for k in trainer._trained}
     if not all(math.isfinite(v) and v > 0 for v in moved.values()):
         raise AssertionError(f"parameters not updated or not finite: {moved}")
-    log("train", f"every parameter tensor moved, by at most {max(moved.values()):.3e}")
+    log(label, f"every parameter tensor moved, by at most {max(moved.values()):.3e}")
+    return state, p0, p1, steps, counts
 
-    # The first step again on the plain path, from the same seed (same
-    # parameters and dropout masks).
+
+def run_train(device, cfg: Config) -> tuple[dict, dict]:
+    """``Trainer.train_step`` at full width, B = 16, replayed from its CUDA
+    graph; returns (the counters of the main path's 3 steps, measured
+    numbers)."""
+    trainer = Trainer(cfg, device)
+    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    state, p0, p1, steps, counts = captured_steps(trainer, batch, "train")
+    losses = [s[1].item() for s in steps]
+    gnorms = [s[3].item() for s in steps]
+
+    # The same 3 steps eagerly on the kernels, from the same seed (same
+    # parameters and dropout masks), twice: the graph replays launch the same
+    # kernels on the same data. The parameters are held after the first
+    # step: later steps differ as far as the atomics of the upsample's and
+    # grid_sample's backward move the first update, as two eager runs do.
+    eager_states = [trainer.init_state(seed=0) for _ in range(2)]
+    eager, eager_p1 = [], []
+    with kernels.eager():
+        for st in eager_states:
+            eager.append([trainer.train_step(st, batch)])
+            eager_p1.append({k: v.detach().clone() for k, v in st.params.items()})
+            eager[-1] += [trainer.train_step(st, batch) for _ in range(TRAIN_STEPS - 1)]
+    d_loss_e = max(abs(a - e[1].item()) / abs(e[1].item()) for a, e in zip(losses, eager[0]))
+    d_gnorm_e = max(abs(a - e[3].item()) / e[3].item() for a, e in zip(gnorms, eager[0]))
+    scale = max(v.abs().max().item() for k, v in eager_p1[0].items() if k in trainer._trained)
+
+    def param_diff(a: dict, b: dict) -> tuple[float, str]:
+        """Largest |Δp| over the trained tensors, over the largest |p| of all
+        of them, and the tensor it is in."""
+        d = {k: (a[k] - b[k]).abs().max().item() for k in trainer._trained}
+        worst = max(d, key=d.get)
+        return d[worst] / scale, f"{worst} (max |p| there {b[worst].abs().max().item():.3e})"
+
+    d_param_e, where = param_diff(p1, eager_p1[0])
+    d_param_3, where_3 = param_diff(state.params, eager_states[0].params)
+    d_param_ee, where_ee = param_diff(eager_states[1].params, eager_states[0].params)
+    log("train", f"graph vs eager kernel path: loss rel {d_loss_e:.3e}, grad_norm rel "
+        f"{d_gnorm_e:.3e} over {TRAIN_STEPS} steps; parameters max|d| / max|p| {d_param_e:.3e} "
+        f"after step 1 in {where}, {d_param_3:.3e} after step {TRAIN_STEPS} in {where_3} "
+        f"(eager vs eager: {d_param_ee:.3e} in {where_ee})")
+    if d_loss_e > 1e-6 or d_gnorm_e > 1e-6 or d_param_e > 1e-5:
+        raise AssertionError("graph and eager train steps differ beyond loss / grad_norm 1e-6 "
+                             "relative, parameters 1e-5 of max |p|")
+
+    # The first step again on the plain path, from the same seed.
     with kernels.plain_versions():
         _, loss_p, _, gnorm_p = trainer.train_step(trainer.init_state(seed=0), batch)
     d_loss = abs(losses[0] - loss_p.item()) / abs(loss_p.item())
@@ -556,33 +740,23 @@ def run_train(device, cfg: Config) -> tuple[dict, dict]:
         raise AssertionError("train step differs from the plain path beyond loss 1e-4 / "
                              "grad_norm 1e-4 relative")
     unet_rel = check_unet_gradient(device, trainer, p0)
+    times = time_train(trainer, batch, "train")
+    return counts, {"times": times, "loss_rel": d_loss, "gnorm_rel": d_gnorm,
+                    "unet_grad_rel": unet_rel, "eager_loss_rel": d_loss_e,
+                    "eager_gnorm_rel": d_gnorm_e, "eager_param_rel": d_param_e}
 
-    def step_ms(plain: bool, reps: int = 3) -> tuple[float, float]:
-        """(median host-clock ms of `reps` steps, peak device MB)."""
-        st = trainer.init_state(seed=0)
-        times = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            if plain:
-                with kernels.plain_versions():
-                    trainer.train_step(st, batch)
-            else:
-                trainer.train_step(st, batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), torch.cuda.max_memory_allocated() / 2**20
 
-    (p1, mp1), (k1, mk1), (k2, mk2), (p2, mp2) = (
-        step_ms(True), step_ms(False), step_ms(False), step_ms(True))
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    width = cfg.model.cart_pixel_width
-    log("train", f"train_step B={TRAIN_BATCH} {width}^2 N={N_SCAN} M={N_MAP}, median of 3 in "
-        f"turns: kernel path {k_ms:.1f} ms (peak {max(mk1, mk2):.0f} MiB), plain path "
-        f"{p_ms:.1f} ms (peak {max(mp1, mp2):.0f} MiB)")
-    return counts, {"ms": k_ms, "plain_ms": p_ms, "loss_rel": d_loss, "gnorm_rel": d_gnorm,
-                    "unet_grad_rel": unet_rel}
+def run_train_bf16(device, cfg: Config) -> tuple[dict, dict]:
+    """The same train step with ``model.dtype="bfloat16"`` (K2's and K3's
+    bfloat16 kernels): 3 replays, finite, timed on the three paths. The
+    loss is not held to the float32 step's: bfloat16 activations, and the
+    grad_norm of 1e7 or more that bfloat16 gives the reference too."""
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
+    trainer = Trainer(cfg, device)
+    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    *_, counts = captured_steps(trainer, batch, "train_bf16")
+    return counts, {"times": time_train(trainer, batch, "train_bf16")}
 
 
 def run_probes(device) -> tuple[dict, dict]:
@@ -633,39 +807,49 @@ def main() -> int:
     batch = synthetic_batch(1, BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
                             device=device)
     shapes = conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width)
-    conv_err, conv_ms, conv_plain = check_conv(device, shapes)
+    conv_err, conv_err16, conv_ms, conv_plain = check_conv(device, shapes)
     bwd = check_conv_backward(device, shapes)
+    bf16 = time_conv_bf16(device, shapes)
     dense = check_dense(batch)
     stripe = check_stripe(batch)
     trainer = Trainer(cfg, device)
     params = trainer.init_state(seed=0).params
-    counts = run_slice(trainer, params, batch)
-    step_ms, step_plain = time_eval(trainer, params, batch)
+    counts, solve = run_slice(trainer, params, batch)
+    eval_times = time_eval(trainer, params, batch)
     dense_trainer = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, icp_overrides=cfg.model.icp_overrides + ("nn_stripe=false",))), device)
-    dense_counts = run_slice(dense_trainer, dense_trainer.init_state(seed=0).params, batch)
+    dense_counts, _ = run_slice(dense_trainer, dense_trainer.init_state(seed=0).params, batch)
     if dense_counts["nn_stripe"] or not dense_counts["nn_argmin"]:
         raise AssertionError(f"nn_stripe=false did not take the dense NN: {dense_counts}")
     del batch
     train_counts, train = run_train(device, cfg)
+    bf16_counts, train_bf16 = run_train_bf16(device, cfg)
     probe_counts, probes = run_probes(device)
 
-    # launches: the sum over the main paths' counted runs (the eval step,
-    # the dense eval step, the train path's 3 steps, the probe timing).
-    # Errors: float32 max |kernel − plain| over every stage, at B = 4 for the
-    # forward and at B = 4 and 16 for dx and dk. conv3x3 (forward and dx):
-    # one train step's forward + dx at B = 16 (the eval step's forward at
-    # B = 32 is logged above); conv3x3_dk: one train step's dk at B = 16.
-    # Their plain versions are cuDNN's calls (F.conv2d,
-    # torch.nn.grad.conv2d_weight), so those are their library times. No
-    # single PyTorch call computes an NN argmin.
-    works = conv_works(shapes, TRAIN_BATCH)
+    # launches: the sum over the counted main-path runs of ROW_PHASES.
+    # Errors: max |kernel − plain| over every stage, at B = 4 for the
+    # forward and at B = 4 and 16 for dx and dk (bfloat16: B = 4). conv3x3
+    # (forward and dx): one train step's forward + dx at B = 16 (the eval
+    # step's forward at B = 32 is logged above); conv3x3_dk: one train
+    # step's dk at B = 16. The float32 plain versions are cuDNN's calls
+    # (F.conv2d, torch.nn.grad.conv2d_weight), so those are their library
+    # times; the bfloat16 plain versions widen to float32, and the library
+    # call is cuDNN's own bfloat16 one. No single PyTorch call computes an
+    # NN argmin.
+    works, works16 = conv_works(shapes, TRAIN_BATCH), conv_works(shapes, TRAIN_BATCH,
+                                                                 torch.bfloat16)
     measured = {
         "conv3x3": {"max_abs_err": max(conv_err, bwd["dx_abs"]), "ms": bwd["fwd"] + bwd["dx"],
                     "plain_ms": bwd["fwd_plain"] + bwd["dx_plain"],
                     "library_ms": bwd["fwd_plain"] + bwd["dx_plain"]},
         "conv3x3_dk": {"max_abs_err": bwd["dk_abs"], "ms": bwd["dk"], "plain_ms": bwd["dk_plain"],
                        "library_ms": bwd["dk_plain"]},
+        "conv3x3_bf16": {"max_abs_err": max(conv_err16, bwd["dx_abs_bf16"]),
+                         "ms": bf16["fwd"] + bf16["dx"],
+                         "plain_ms": bf16["fwd_plain"] + bf16["dx_plain"],
+                         "library_ms": bf16["fwd_lib"] + bf16["dx_lib"]},
+        "conv3x3_dk_bf16": {"max_abs_err": bwd["dk_abs_bf16"], "ms": bf16["dk"],
+                            "plain_ms": bf16["dk_plain"], "library_ms": bf16["dk_lib"]},
         "nn_stripe": {"max_abs_err": stripe[0], "ms": stripe[1], "plain_ms": stripe[2],
                       "library_ms": None},
         "nn_argmin": {"max_abs_err": dense[0], "ms": dense[1], "plain_ms": dense[2],
@@ -673,23 +857,31 @@ def main() -> int:
         **probes,
     }
     for name, bound in (("conv3x3", seq_bound(works["fwd"] + works["dx"])),
-                        ("conv3x3_dk", seq_bound(works["dk"])), ("nn_stripe", stripe[3]),
-                        ("nn_argmin", dense[3])):
+                        ("conv3x3_dk", seq_bound(works["dk"])),
+                        ("conv3x3_bf16", seq_bound(works16["fwd"] + works16["dx"])),
+                        ("conv3x3_dk_bf16", seq_bound(works16["dk"])),
+                        ("nn_stripe", stripe[3]), ("nn_argmin", dense[3])):
         measured[name]["bound_ms"], measured[name]["bound_by"] = bound
-    paths = (counts, dense_counts, train_counts, probe_counts)
+    phases = {"slice": counts, "dense": dense_counts, "train": train_counts,
+              "train_bf16": bf16_counts, "probes": probe_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(c[w] for c in paths for w in wrappers),
+         "launches": sum(phases[ph][w] for ph in ROW_PHASES.get(name, ("probes",))
+                         for w in wrappers),
          **{k: measured[name][k] for k in keys}}
         for name, (src, rep, wrappers) in KERNELS.items()
     ]
     idle = [r["name"] for r in rows if r["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels the main path never launched: {idle}")
-    log("done", f"eval_step {step_ms:.1f} ms (plain {step_plain:.1f} ms), its convs "
-        f"{conv_ms:.2f} ms (plain {conv_plain:.2f} ms); train_step "
-        f"{train['ms']:.1f} ms (plain {train['plain_ms']:.1f} ms) on {smi}")
+    med = statistics.median
+    log("done", "host-clock medians (ms, graph / eager / plain): eval_step " + " / ".join(
+        f"{med(t):.1f}" for t in eval_times.values()) + f" ({solve['stop_tests']} stop-test "
+        f"reads, {solve['iterations']} iterations), its convs {conv_ms:.2f} (plain "
+        f"{conv_plain:.2f}); train_step " + " / ".join(
+            f"{med(t):.1f}" for t, _ in train["times"].values()) + "; bf16 train_step " +
+        " / ".join(f"{med(t):.1f}" for t, _ in train_bf16["times"].values()) + f" on {smi}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -50,6 +50,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "smem_opt_in.cuh"
+
 namespace {
 
 constexpr int TH = 8;       // output rows of a block
@@ -314,9 +316,9 @@ extern "C" int mm_conv3x3_f32(const void* x, const void* w, const void* bias, vo
                               int Ci, int Co, int H, int W, int relu, void* stream) {
   return with_tile(Co, W, [&](auto tile, auto kernel) {
     using T = decltype(tile);
-    const cudaError_t status = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(T::SMEM));
-    if (status != cudaSuccess) return static_cast<int>(status);
+    const int status = mm::opt_in_smem(reinterpret_cast<const void*>(kernel),
+                                       static_cast<int>(T::SMEM));
+    if (status != 0) return status;
     const int tw = T::HC - 2;
     const dim3 grid(((W + tw - 1) / tw) * ((H + TH - 1) / TH), (Co + T::CO_T - 1) / T::CO_T, B);
     kernel<<<grid, T::THREADS, T::SMEM, static_cast<cudaStream_t>(stream)>>>(

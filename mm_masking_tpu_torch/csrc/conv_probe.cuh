@@ -17,6 +17,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "smem_opt_in.cuh"
+
 namespace probe {
 
 constexpr int THREADS = 256;        // threads per block, every probe kernel
@@ -184,17 +186,13 @@ __device__ inline void contract_x9(const T* x9, const float* ks, T* yb, int h0, 
   }
 }
 
-// Opt the kernel into `bytes` of dynamic shared memory; an error code for
-// more than a block may have, so that nothing is launched that would be
-// refused.
+// Opt the kernel into `bytes` of dynamic shared memory, once per device; an
+// error code for more than a block may have, so that nothing is launched
+// that would be refused.
 template <typename Kernel>
 int smem_opt_in(Kernel kernel, size_t bytes) {
   if (bytes > static_cast<size_t>(SMEM_LIMIT)) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    return static_cast<int>(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-  }
-  return 0;
+  return mm::opt_in_smem(reinterpret_cast<const void*>(kernel), static_cast<int>(bytes));
 }
 
 }  // namespace probe

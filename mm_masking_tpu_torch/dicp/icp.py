@@ -21,9 +21,15 @@ Per iteration:
   4. weights: trim × robust × caller weight × source-pad mask;
   5. the weighted normal equations; ``dim=2`` solves only (x, y, yaw).
 
-The eager loop reads scalars back per iteration (the stopping test of the
-inference loop and the stripe budget test); capturing it in a CUDA graph is
-later work.
+Nothing in an iteration reads the device from the host: the stripe
+budget test is a select on the device, and the inference loop counts its
+iterations there. The inference loop runs in chunks of
+``STOP_TEST_EVERY`` iterations and reads its stop test once per chunk; a
+chunk's iterations change nothing once every item has stopped, so the
+result is that of a test after every iteration. On the card a chunk is a
+CUDA graph, captured once per configuration and shape and replayed
+(:mod:`mm_masking_tpu_torch.graphs`); the training solve is part of the
+train step's graph.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ from typing import Any
 import torch
 
 from mm_masking_tpu_torch.geom import se3_exp, se3_inv, transform_points
+from mm_masking_tpu_torch.graphs import CapturedStep
+from mm_masking_tpu_torch.ops.kernels import use_graphs
 from mm_masking_tpu_torch.ops.kernels.nn_assoc import (
     map_layout,
     nn_argmin,
@@ -42,7 +50,7 @@ from mm_masking_tpu_torch.ops.kernels.nn_assoc import (
 )
 
 TARGET_PAD_VAL = 1000.0  # map pad sentinel; > any real range, trimmed out
-_PLANAR_DOF = (0, 1, 5)  # x, y, yaw columns of the se(3) twist
+STOP_TEST_EVERY = 5  # inference GN iterations between two reads of the stop test
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +179,12 @@ def _prior_error6(T: torch.Tensor, T_prior: torch.Tensor) -> torch.Tensor:
     return torch.cat([E[..., :3, 3], phi], dim=-1)
 
 
+def _planar(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The x, y and yaw entries (0, 1, 5) of the se(3) twist along ``dim``,
+    by slices (a Python index list would be copied to the card each call)."""
+    return torch.cat([x.narrow(dim, 0, 2), x.narrow(dim, 5, 1)], dim)
+
+
 def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, M, C), idx (B, N) int → (B, N, C)."""
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
@@ -245,13 +259,13 @@ def _gn_step(
         b = b - cfg.prior_weight * _prior_error6(T, T_prior)
 
     if cfg.dim == 2:
-        sel = list(_PLANAR_DOF)
-        A_sub = A[:, sel][:, :, sel]
+        A_sub = _planar(_planar(A, 1), 2)
         tr3 = (A_sub[:, 0, 0] + A_sub[:, 1, 1] + A_sub[:, 2, 2]) / 3.0
         lam = cfg.damping + cfg.damping_rel * tr3
         A_sub = A_sub + lam[:, None, None] * torch.eye(3, dtype=A.dtype, device=A.device)
-        delta = torch.zeros((B, 6), dtype=A.dtype, device=A.device)
-        delta[:, sel] = _solve3x3(A_sub, b[:, sel])
+        x = _solve3x3(A_sub, _planar(b, 1))
+        zero = torch.zeros((B, 3), dtype=A.dtype, device=A.device)
+        delta = torch.cat([x[:, :2], zero, x[:, 2:]], dim=1)
     else:
         lam = cfg.damping + cfg.damping_rel * A.diagonal(dim1=-2, dim2=-1).sum(-1) / 6.0
         A = A + lam[:, None, None] * torch.eye(6, dtype=A.dtype, device=A.device)
@@ -295,7 +309,8 @@ def icp(
     (+normals for pt2pl) with ``cfg.target_pad_val`` pad rows; T_init
     (B, 4, 4); weight optional (B, N). Returns, with
     ``cfg.differentiable``, {'T' (B, 4, 4), 'delta_norms' (max_iterations,
-    B)}; otherwise {'T', 'iterations' (int), 'delta_norm' (B,)}.
+    B)}; otherwise {'T', 'iterations' (int64 tensor), 'delta_norm' (B,),
+    'stop_tests' (int, the host's reads of the stop test)}.
     ``cfg.remat_iters`` is a memory knob of the JAX package and is ignored.
     """
     if cfg.nn_refresh_dist > 0.0 and not cfg.differentiable:
@@ -308,64 +323,155 @@ def icp(
         stripe = target.shape[1] >= 4096
     source_valid = (~((source[..., 0] == 0.0) & (source[..., 1] == 0.0))).to(source.dtype)
 
-    stripe_assoc = None
+    inp = {}
     if stripe:
         # Sort the map once per solve, and permute the source rows once by
         # their initial-guess key (the GN sums do not depend on row order).
-        target, key_sorted, use_x = stripe_sort_target(target, cfg.target_pad_val)
+        target, inp["key_sorted"], inp["use_x"] = stripe_sort_target(
+            target, cfg.target_pad_val)
         p0 = transform_points(T_init, source)
         order = torch.argsort(
-            torch.where(use_x[:, None], p0[..., 0], p0[..., 1]), dim=1, stable=True)
+            torch.where(inp["use_x"][:, None], p0[..., 0], p0[..., 1]), dim=1, stable=True)
         source = _gather_rows(source, order)
         source_valid = torch.gather(source_valid, 1, order)
         if weight is not None:
             weight = torch.gather(weight, 1, order)  # ∂/∂weight flows back through it
-    target_pts = target[..., :3]
-    target_nrm = target[..., 3:6] if target.shape[-1] >= 6 else None
-    if cfg.icp_type == "pt2pl" and target_nrm is None:
+    if cfg.icp_type == "pt2pl" and target.shape[-1] < 6:
         raise ValueError("pt2pl requires target with normals (B, M, 6)")
-    q4 = map_layout(target_pts)  # the kernel's map layout, hoisted out of the loop
-    if stripe:
-        stripe_assoc = functools.partial(
-            nn_argmin_stripe_presorted, q_sorted=target_pts, key_sorted=key_sorted,
-            use_x=use_x, trim_dist=cfg.trim_dist,
-            window=cfg.nn_stripe_window or None, tn=cfg.nn_stripe_tile, q4=q4,
-        )
-    step = functools.partial(
-        _gn_step, source=source, target_pts=target_pts, target_nrm=target_nrm,
-        weight=weight, source_valid=source_valid, cfg=cfg, T_prior=T_prior,
-        assoc_fn=functools.partial(nn_argmin, q=target_pts, q4=q4),
-    )
+    inp.update(source=source, source_valid=source_valid, target_pts=target[..., :3],
+               q4=map_layout(target[..., :3]))  # the kernel's layout, hoisted out of the loop
+    for name, t in (("target_nrm", target[..., 3:6] if target.shape[-1] >= 6 else None),
+                    ("weight", weight), ("T_prior", T_prior)):
+        if t is not None:
+            inp[name] = t
 
     if cfg.differentiable:
         T, norms = T_init, []
         for _ in range(cfg.max_iterations):
             p = transform_points(T, source).detach()
-            if stripe_assoc is not None:
-                idx, _ = stripe_assoc(p)
-            else:
-                idx, _ = nn_argmin(p, target_pts, q4)
-            T, delta = step(T, idx=idx)
+            T, delta = _gn_step(T, idx=_associate(inp, p, cfg, stripe), **_step_args(inp, cfg))
             norms.append(torch.linalg.vector_norm(delta, dim=-1))
         return {"T": T, "delta_norms": torch.stack(norms)}
+    with torch.no_grad():  # the tolerance-stopped solve has no gradient, as in JAX
+        return _solve_to_tolerance(inp, T_init, cfg, stripe)
 
-    B, N = source.shape[:2]
-    T = T_init
-    dn = torch.full((B,), float("inf"), dtype=T_init.dtype, device=T_init.device)
-    idx = torch.zeros((B, N), dtype=torch.int32, device=source.device)
-    it = 0
-    while it < cfg.max_iterations and bool(dn.max() >= cfg.tolerance):
-        run = dn >= cfg.tolerance  # (B,) items still iterating
-        if stripe_assoc is not None:
-            idx_new, _ = stripe_assoc(transform_points(T, source), refresh=run)
-            idx = torch.where(run[:, None], idx_new, idx)
-            T_new, delta = step(T, idx=idx)
+
+def _step_args(inp: dict, cfg: ICPConfig) -> dict:
+    """The keyword arguments of :func:`_gn_step` from a solve's inputs."""
+    return dict(source=inp["source"], target_pts=inp["target_pts"],
+                target_nrm=inp.get("target_nrm"), weight=inp.get("weight"),
+                source_valid=inp["source_valid"], cfg=cfg, T_prior=inp.get("T_prior"),
+                assoc_fn=functools.partial(nn_argmin, q=inp["target_pts"], q4=inp["q4"]))
+
+
+def _associate(inp: dict, p: torch.Tensor, cfg: ICPConfig, stripe: bool,
+               refresh: torch.Tensor | None = None) -> torch.Tensor:
+    """Nearest map row of each transformed source point p: the sorted stripe
+    (items with ``refresh`` False do no search) or dense."""
+    if not stripe:
+        return nn_argmin(p, inp["target_pts"], inp["q4"])[0]
+    return nn_argmin_stripe_presorted(
+        p, q_sorted=inp["target_pts"], key_sorted=inp["key_sorted"], use_x=inp["use_x"],
+        trim_dist=cfg.trim_dist, window=cfg.nn_stripe_window or None,
+        tn=cfg.nn_stripe_tile, q4=inp["q4"], refresh=refresh)[0]
+
+
+def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
+    """n iterations of the tolerance-stopped solve, in place on its state
+    ``st`` (T, dn, idx, done = iterations taken, iterations = those in which
+    any item still ran). An item runs while its last update's stop magnitude
+    is at least the tolerance and fewer than ``max_iterations`` have been
+    taken; a stopped item keeps T, dn and idx, so an iteration in which no
+    item runs changes nothing but ``done``."""
+    step_args = _step_args(inp, cfg)
+    for _ in range(n):
+        T = st["T"]
+        run = (st["dn"] >= cfg.tolerance) & (st["done"] < cfg.max_iterations)
+        if stripe:
+            idx_new = _associate(inp, transform_points(T, inp["source"]), cfg, stripe, run)
+            st["idx"].copy_(torch.where(run[:, None], idx_new, st["idx"]))
+            T_new, delta = _gn_step(T, idx=st["idx"], **step_args)
         else:
-            T_new, delta = step(T)  # dense: every item re-associates
-        T = torch.where(run[:, None, None], T_new, T)
-        dn = torch.where(run, _stop_mag(delta, cfg), dn)
-        it += 1
-    return {"T": T, "iterations": it, "delta_norm": dn}
+            T_new, delta = _gn_step(T, **step_args)  # dense: every item re-associates
+        st["T"].copy_(torch.where(run[:, None, None], T_new, T))
+        st["dn"].copy_(torch.where(run, _stop_mag(delta, cfg), st["dn"]))
+        st["iterations"].add_(run.any())
+        st["done"].add_(1)
+
+
+def _start(st: dict, T_init: torch.Tensor) -> None:
+    """Set a solve's state to its start: every item runs from T_init."""
+    st["T"].copy_(T_init)
+    st["dn"].fill_(float("inf"))
+    for name in ("idx", "done", "iterations"):
+        st[name].zero_()
+
+
+def _new_state(T_init: torch.Tensor, n_points: int) -> dict:
+    B, dev = T_init.shape[0], T_init.device
+    st = {"T": torch.empty_like(T_init), "dn": torch.empty((B,), dtype=T_init.dtype, device=dev),
+          "idx": torch.empty((B, n_points), dtype=torch.int32, device=dev),
+          "done": torch.empty((), dtype=torch.int64, device=dev),
+          "iterations": torch.empty((), dtype=torch.int64, device=dev)}
+    _start(st, T_init)
+    return st
+
+
+# Captured chunks of the tolerance-stopped solve, by configuration and the
+# shapes of its inputs: (static inputs, static state, CapturedStep).
+_CHUNKS: dict = {}
+
+
+def _captured_chunk(inp: dict, T_init: torch.Tensor, cfg: ICPConfig, stripe: bool,
+                    k: int) -> tuple[dict, CapturedStep]:
+    """The chunk of k iterations as a CUDA graph over static copies of the
+    solve's inputs and state; loads this solve's inputs into them and sets
+    the state to its start."""
+    key = (cfg, stripe, k, T_init.device, T_init.shape, T_init.dtype,
+           tuple((name, t.shape, t.dtype) for name, t in sorted(inp.items())))
+    if key not in _CHUNKS:
+        with torch.inference_mode(False):  # static tensors outlive an inference call
+            s_inp = {name: torch.empty_like(t) for name, t in inp.items()}
+            s_st = _new_state(T_init, inp["source"].shape[1])
+        for name, t in inp.items():
+            s_inp[name].copy_(t)
+        chunk = CapturedStep(lambda: _iterate(s_st, s_inp, cfg, stripe, k), T_init.device)
+        _CHUNKS[key] = (s_inp, s_st, chunk)
+    s_inp, s_st, chunk = _CHUNKS[key]
+    for name, t in inp.items():
+        s_inp[name].copy_(t)
+    _start(s_st, T_init)
+    return s_st, chunk
+
+
+def _solve_to_tolerance(inp: dict, T_init: torch.Tensor, cfg: ICPConfig,
+                        stripe: bool) -> dict[str, Any]:
+    """The inference solve: chunks of ``STOP_TEST_EVERY`` iterations, the
+    stop test read from the device after each chunk but the last. The
+    result equals a loop that tests after every iteration."""
+    k = max(1, min(STOP_TEST_EVERY, cfg.max_iterations))
+    n_chunks = -(-max(cfg.max_iterations, 0) // k)
+    graphs = use_graphs(T_init.device) and n_chunks > 0
+    if graphs:
+        st, captured = _captured_chunk(inp, T_init, cfg, stripe, k)
+        chunk = captured.replay
+    else:
+        st = _new_state(T_init, inp["source"].shape[1])
+
+        def chunk():
+            _iterate(st, inp, cfg, stripe, k)
+    stop_tests = 0
+    for c in range(n_chunks):
+        chunk()
+        if c + 1 == n_chunks:
+            break
+        stop_tests += 1
+        if not bool((st["dn"] >= cfg.tolerance).any()):
+            break
+    out = {"T": st["T"], "iterations": st["iterations"], "delta_norm": st["dn"]}
+    if graphs:  # the next solve of this shape overwrites the static state
+        out = {name: t.clone() for name, t in out.items()}
+    return {**out, "stop_tests": stop_tests}
 
 
 def icp_implicit(source, target, T_init, weight, cfg: ICPConfig):

@@ -4,7 +4,11 @@ Every wrapper here dispatches on the device of its input: a CPU tensor runs
 the plain PyTorch version in the same module, a CUDA tensor launches the
 kernel or raises. There is no fallback. :func:`plain_versions` runs the plain
 versions on CUDA tensors too, for comparison runs that hold a kernel against
-its reference on the card; nothing on the main path enters it.
+its reference on the card; nothing on the main path enters it. On the card
+the train step and the eval solve's iterations are captured as CUDA graphs
+and replayed (``mm_masking_tpu_torch.graphs``); :func:`eager` runs them
+eagerly on the kernels instead, again for comparison runs only, and
+:func:`plain_versions` runs eagerly too.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``conv3x3.launches`` …), read with :func:`launch_counts`. The conv's three
@@ -12,14 +16,14 @@ jobs count apart: ``conv3x3`` (K2, forward), ``conv3x3_dx`` (K2 as the
 backward's dx) and ``conv3x3_dk`` (K3, the weight gradient). The conv-probe
 kernels P1–P4 count as ``conv3x3_nhcw``, ``conv3x3_nhcw_run:<variant>`` (one
 counter for each of P2's five variants), ``conv3x3_nhcw_v2`` and
-``conv3x3_flat``.
+``conv3x3_flat``. A graph replay counts the launches its capture recorded.
 """
 from __future__ import annotations
 
 import contextlib
 
 from mm_masking_tpu_torch.ops.kernels import _build, conv2d, conv_probes, nn_assoc
-from mm_masking_tpu_torch.ops.kernels._build import build
+from mm_masking_tpu_torch.ops.kernels._build import build, use_graphs
 
 _WRAPPERS = {
     "conv3x3": conv2d.conv3x3,
@@ -43,6 +47,25 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` ({wrapper: launches}, negative to take away) to the
+    counters: a graph's replay adds the launches its capture recorded."""
+    for name, n in counts.items():
+        _WRAPPERS[name].launches += n
+
+
+@contextlib.contextmanager
+def eager():
+    """Run the steps eagerly on the kernels inside the block: no CUDA graph
+    is captured or replayed."""
+    prev = _build.EAGER_ON_CUDA
+    _build.EAGER_ON_CUDA = True
+    try:
+        yield
+    finally:
+        _build.EAGER_ON_CUDA = prev
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Run the plain PyTorch versions on CUDA tensors inside the block."""
@@ -55,8 +78,11 @@ def plain_versions():
 
 
 __all__ = [
+    "add_launch_counts",
     "build",
+    "eager",
     "launch_counts",
     "plain_versions",
     "reset_launch_counts",
+    "use_graphs",
 ]

@@ -134,25 +134,41 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-# Set only inside ``plain_versions()`` (comparison runs on the card).
+# Set only inside ``plain_versions()`` and ``eager()`` (comparison runs on
+# the card).
 PLAIN_ON_CUDA = False
+EAGER_ON_CUDA = False
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True for CUDA inputs (launch the kernel), False for CPU inputs (run the
-    plain version); raises for mixed or other devices."""
+    plain version); raises for mixed or other devices, and for CUDA inputs
+    on more than one card."""
     kinds = {t.device.type for t in tensors}
     if kinds == {"cuda"}:
+        cards = {t.device for t in tensors}
+        if len(cards) > 1:
+            raise ValueError(
+                f"inputs must all be on one CUDA device, got {sorted(map(str, cards))}")
         return not PLAIN_ON_CUDA
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"inputs must all be on one CPU or CUDA device, got {kinds}")
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel entry ``name`` on the current stream; raise on a CUDA error."""
+def use_graphs(device: torch.device) -> bool:
+    """True where a step is captured as a CUDA graph and replayed: on a CUDA
+    device, outside ``plain_versions()`` and ``eager()``."""
+    return device.type == "cuda" and not (PLAIN_ON_CUDA or EAGER_ON_CUDA)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel entry ``name`` on ``device`` (the inputs' card, made
+    current for the call) and that card's current stream; raise on a CUDA
+    error."""
     lib = library()
-    status = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        status = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         msg = lib.mm_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")

@@ -73,7 +73,7 @@ def _launch_forward(x, weight, bias, relu):
     x, w9 = x.contiguous(), w9.contiguous()  # x: a no-op inside the autograd Function
     b = bias.float().contiguous()
     y = torch.empty((B, Co, H, W), dtype=x.dtype, device=x.device)
-    launch(_ENTRY[x.dtype], x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+    launch(_ENTRY[x.dtype], x.device, x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
            B, Ci, Co, H, W, int(relu))
     return y
 
@@ -115,7 +115,7 @@ def conv3x3_dk(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     n_chunks = library().mm_conv3x3_dk_chunks(B, Ci, Co, H, W)
     partial = torch.empty((n_chunks, Co, Ci, 9), dtype=torch.float32, device=x.device)
     dk = torch.empty((Co, Ci, 3, 3), dtype=torch.float32, device=x.device)
-    launch(_DK_ENTRY[x.dtype], x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+    launch(_DK_ENTRY[x.dtype], x.device, x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
            dk.data_ptr(), B, Ci, Co, H, W, n_chunks)
     conv3x3_dk.launches += 1
     return dk

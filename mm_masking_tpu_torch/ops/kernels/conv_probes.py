@@ -159,8 +159,8 @@ def _launch_nhcw(variant: str, xp: torch.Tensor, kmat: torch.Tensor, TH: int,
     wt = _w_tile(W, lambda t: library().mm_probe_nhcw_smem_bytes(v, Ci, Co, TH, t, e),
                  f"conv probe {variant} Ci={Ci} Co={Co} TH={TH} {xp.dtype}")
     y = torch.empty((B, Hp - 2, Co, W), dtype=xp.dtype, device=xp.device)
-    launch(f"mm_probe_nhcw_{_SUFFIX[xp.dtype]}", xp.data_ptr(), km.data_ptr(), y.data_ptr(),
-           B, Hp - 2, Ci, Co, W, TH, wt, v, int(relu), vec)
+    launch(f"mm_probe_nhcw_{_SUFFIX[xp.dtype]}", xp.device, xp.data_ptr(), km.data_ptr(),
+           y.data_ptr(), B, Hp - 2, Ci, Co, W, TH, wt, v, int(relu), vec)
     return y
 
 
@@ -219,8 +219,8 @@ def conv3x3_nhcw_v2(x: torch.Tensor, k: torch.Tensor, TH: int = 16,
                  f"conv probe v2 Ci={Ci} Co={Co} TH={TH} {x.dtype}")
     G = tiles_per_block(H // TH, B * -(-W // wt))
     y = torch.empty((B, H, Co, W), dtype=x.dtype, device=x.device)
-    launch(f"mm_probe_halo_{_SUFFIX[x.dtype]}", x.data_ptr(), km.data_ptr(), y.data_ptr(),
-           B, H, Ci, Co, W, TH, wt, G, int(relu), vec)
+    launch(f"mm_probe_halo_{_SUFFIX[x.dtype]}", x.device, x.data_ptr(), km.data_ptr(),
+           y.data_ptr(), B, H, Ci, Co, W, TH, wt, G, int(relu), vec)
     conv3x3_nhcw_v2.launches += 1
     return y
 
@@ -243,8 +243,8 @@ def conv3x3_flat(x: torch.Tensor, k: torch.Tensor, TH: int = 16, ndot: int = 1,
                    lambda c: library().mm_probe_flat_smem_bytes(Ci, Co, W, c, e),
                    f"conv probe flat Ci={Ci} Co={Co} W={W} {x.dtype}")
     y = torch.empty((B, Co, H, W), dtype=x.dtype, device=x.device)
-    launch(f"mm_probe_flat_{_SUFFIX[x.dtype]}", x.data_ptr(), km.data_ptr(), y.data_ptr(),
-           B, Ci, Co, H, W, TH, lc, ndot, int(relu), vec)
+    launch(f"mm_probe_flat_{_SUFFIX[x.dtype]}", x.device, x.data_ptr(), km.data_ptr(),
+           y.data_ptr(), B, Ci, Co, H, W, TH, lc, ndot, int(relu), vec)
     conv3x3_flat.launches += 1
     return y
 

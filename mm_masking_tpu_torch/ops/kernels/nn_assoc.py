@@ -12,8 +12,10 @@ The sorted stripe: the map is sorted once per solve along its widest planar
 axis; a tile of scan rows grouped by that key only needs the contiguous run
 of map points whose key lies within the tile's key span ± trim. Each tile
 scans that run, rounded out to blocks of ``tm``; if any tile needs more
-blocks than the static budget ``window // tm + 1`` the whole call runs
-dense. Within trim the result equals the dense one.
+blocks than the static budget ``window // tm + 1``, every tile scans the
+whole map, which gives the dense result. That choice is a select on the
+device, so the dispatcher reads nothing back to the host. Within trim the
+result equals the dense one.
 """
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ def nn_argmin(p: torch.Tensor, q: torch.Tensor, q4: torch.Tensor | None = None
     M = q4.shape[1]
     idx = torch.empty((B, N), dtype=torch.int32, device=p.device)
     d2 = torch.empty((B, N), dtype=torch.float32, device=p.device)
-    launch("mm_nn_argmin", p.data_ptr(), q4.data_ptr(), None, None,
+    launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), None, None,
            B, N, M, NN_ROWS, M, idx.data_ptr(), d2.data_ptr())
     nn_argmin.launches += 1
     return idx, d2
@@ -151,7 +153,7 @@ def nn_stripe(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
             raise ValueError("start_blk and nblk must be contiguous int32")
     idx = torch.empty((B, N), dtype=torch.int32, device=p.device)
     d2 = torch.empty((B, N), dtype=torch.float32, device=p.device)
-    launch("mm_nn_argmin", p.data_ptr(), q4.data_ptr(), start_blk.data_ptr(),
+    launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), start_blk.data_ptr(),
            nblk.data_ptr(), B, N, q4.shape[1], rows, tm, idx.data_ptr(), d2.data_ptr())
     nn_stripe.launches += 1
     return idx, d2
@@ -221,7 +223,8 @@ def nn_argmin_stripe_presorted(
     (nblk 0) and their idx/d2 are garbage — the caller keeps its cached
     values. q4: optional :func:`map_layout` of q_sorted, hoisted out of the
     solver loop. Where no block size tm ∈ {1024, 512, 256, 128} divides both
-    M and the window, the call runs dense.
+    M and the window, the call runs dense (K1); otherwise it launches the
+    stripe kernel (K4), over the whole map when a tile is over budget.
     """
     B, N, _ = p.shape
     M = q_sorted.shape[1]
@@ -240,12 +243,18 @@ def nn_argmin_stripe_presorted(
         # window is unaffected (zero rows would inject key 0).
         p = torch.cat([p, p[:, -1:].expand(B, n_pad, 3)], dim=1)
     start_blk, nblk = stripe_blocks(p, key_sorted, use_x, trim_dist, tn, tm)
-    if refresh is not None:
-        nblk = torch.where(refresh[:, None], nblk, 0).to(torch.int32)
+    # The reference's lax.cond, as a select on the device: when any tile of
+    # an item that searches needs more blocks than the budget, every tile
+    # scans the whole sorted map from block 0, which is the dense result.
     # +1: a block-aligned cover of a run of `window` points can straddle a
     # block boundary at both ends.
-    if int(nblk.max()) <= window // tm + 1:
-        idx, d2 = nn_stripe(p, q3, start_blk, nblk, tm, q4)
-    else:
-        idx, d2 = nn_argmin(p, q3, q4)
+    over = nblk > window // tm + 1
+    if refresh is not None:
+        over &= refresh[:, None]
+    over = over.any()
+    start_blk = torch.where(over, 0, start_blk)
+    nblk = torch.where(over, M // tm, nblk)
+    if refresh is not None:
+        nblk = torch.where(refresh[:, None], nblk, 0)
+    idx, d2 = nn_stripe(p, q3, start_blk.to(torch.int32), nblk.to(torch.int32), tm, q4)
     return idx[:, :N], d2[:, :N]

@@ -80,8 +80,9 @@ def extract_bev_from_pts(
     bev = torch.zeros((B, cart_pixel_width, cart_pixel_width), dtype=pc.dtype,
                       device=pc.device)
     b_idx = torch.arange(B, device=pc.device)[:, None].expand_as(lo[..., 0])
+    one = bev.new_ones(())  # on the device: a Python 1.0 would be copied from the host
     for u in (lo[..., 0], hi[..., 0]):
         for v in (lo[..., 1], hi[..., 1]):
-            bev[b_idx, u, v] = 1.0
+            bev.index_put_((b_idx, u, v), one)
     bev[:, mid, mid] = 0.0
     return bev

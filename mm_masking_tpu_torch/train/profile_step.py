@@ -1,24 +1,30 @@
-"""Profile ``Trainer.train_step``:
+"""Profile ``Trainer.train_step`` and ``Trainer.eval_step``:
 ``python3 -m mm_masking_tpu_torch.train.profile_step``.
 
 At the default ``Config()`` on a synthetic batch of ``train.batch_size_train``
 (16) pairs with ``data.max_loc_pts`` (4096) scan and ``data.max_map_pts``
-(16384) map points (the train step of ``chip_smoke.py``), after two warm-up
-steps it prints:
+(16384) map points (the train step of ``chip_smoke.py``), it captures the
+step's CUDA graph, and after two warm-up steps of each path prints:
 
 1. the host-clock time of 7 steps without instrumentation, each ended by a
-   synchronise;
-2. one step under ``torch.profiler``: the device's busy time (the union of
-   the kernels' spans) and its idle share of the uninstrumented median step,
-   the launch count, the device time by kernel group and the top kernels;
+   synchronise, on the graph path (the step replayed from its CUDA graph)
+   and on the eager kernel path (``ops.kernels.eager()``);
+2. one step of each path under ``torch.profiler``: the host's launch calls
+   (kernels and graphs), the device's busy time (the union of the kernels'
+   spans) and its idle share of that path's uninstrumented median step, the
+   kernel count, the device time by kernel group and the top kernels; where
+   the profiler shows no kernels of a graph's replay, the graph path's busy
+   time is taken as not measured; then 1 and 2 for ``Trainer.eval_step`` on
+   a synthetic batch of ``train.batch_size_test`` (32) pairs, whose solve
+   replays its own graphs;
 3. the host-clock time of each phase (UNet forward, ICP forward, loss,
-   backward, optimizer), each ended by a synchronise, so their sum exceeds
-   a free step;
-4. the peak device memory.
+   backward, optimizer) on the eager path, each ended by a synchronise, so
+   their sum exceeds a free step;
+4. the peak device memory, the graph's capture and memory pool included.
 
 ``--set section.field=value`` overrides the config as in the training CLI;
 It runs on the card and raises without one; ``--device cpu`` runs it at a
-small size without device numbers.
+small size, eagerly, without device numbers.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import mm_masking_tpu_torch.train.trainer as trainer_module
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.device import resolve_device
+from mm_masking_tpu_torch.ops.kernels import eager
 from mm_masking_tpu_torch.train.train_icp_weights import apply_overrides
 from mm_masking_tpu_torch.train.trainer import Trainer
 
@@ -67,12 +74,15 @@ def _group(name: str) -> str:
     return next((g for frag, g in GROUPS if frag in low), "other")
 
 
-def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float]:
-    """({kernel name: (launches, ms)}, busy ms as the union of kernel spans)."""
+def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float, int]:
+    """({kernel name: (launches, ms)}, busy ms as the union of kernel spans,
+    the host's launch calls: kernels and graphs)."""
     rows: dict[str, tuple[int, float]] = {}
     spans = []
+    host_launches = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            host_launches += "launch" in e.name.lower() and e.name.startswith("cu")
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -86,7 +96,55 @@ def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float]:
         else:
             cur[1] = max(cur[1], end)
     busy += 0.0 if cur is None else cur[1] - cur[0]
-    return rows, busy / 1e3
+    return rows, busy / 1e3, host_launches
+
+
+def profile_paths(label: str, steps, device: torch.device) -> tuple[dict, dict]:
+    """Time ``steps(n)`` (n steps, host-clock ms each) on the graph path and
+    the eager kernel path (the CPU: eagerly only) after 2 warm-up steps, then
+    profile one step of each: ({path: times}, {path: device numbers})."""
+    paths = {"graph": contextlib.nullcontext, "eager": eager}
+    if device.type != "cuda":
+        paths = {"eager": contextlib.nullcontext}  # the CPU runs the step eagerly
+    free, out = {}, {}
+    for path, ctx in paths.items():
+        with ctx():
+            steps(2)  # warm-up: kernel build, allocator, plans
+            free[path] = steps(FREE_STEPS)
+        print(f"{label}, {path} path, {FREE_STEPS} steps without instrumentation: median "
+              f"{statistics.median(free[path]):.1f} ms (min {min(free[path]):.1f}, max "
+              f"{max(free[path]):.1f})", flush=True)
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    for path, ctx in paths.items():
+        with ctx(), profile(activities=activities) as prof:
+            (wall,) = steps(1)
+        rows, busy, host_launches = device_summary(prof)
+        launches = sum(n for n, _ in rows.values())
+        total = sum(t for _, t in rows.values())
+        out[path] = {"busy_ms": busy if launches else None, "launches": launches,
+                     "host_launches": host_launches}
+        if not launches:
+            print(f"profiled {path} step: host clock {wall:.1f} ms, {host_launches} host "
+                  f"launch calls; device time not measured (no CUDA kernels traced on "
+                  f"{device})")
+            continue
+        step = statistics.median(free[path])
+        print(f"profiled {path} step: {host_launches} host launch calls, {launches} kernels, "
+              f"device busy {busy:.1f} ms (summed kernel time {total:.1f} ms), idle "
+              f"{100 * (1 - busy / step):.1f}% of the uninstrumented median step; the "
+              f"profiled step took {wall:.1f} ms on the host clock")
+        groups: dict[str, tuple[int, float]] = {}
+        for name, (n, t) in rows.items():
+            gn, gt = groups.get(_group(name), (0, 0.0))
+            groups[_group(name)] = (gn + n, gt + t)
+        for g, (n, t) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+            print(f"  group {g:26s} {t:9.2f} ms  x{n:5d}  {100 * t / total:5.1f}%")
+        for name, (n, t) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]:
+            print(f"  {t:9.2f} ms  x{n:5d}  {name[:110]}")
+    return free, out
 
 
 def main(argv=None) -> dict:
@@ -109,49 +167,29 @@ def main(argv=None) -> dict:
     )
     batch = synthetic_batch(2, bsz, spec, device=device)
     state = trainer.init_state(seed=0)
-
-    def steps(n: int) -> list[float]:
-        times = []
-        for _ in range(n):
-            _sync(device)
-            t0 = time.perf_counter()
-            trainer.train_step(state, batch)
-            _sync(device)
-            times.append((time.perf_counter() - t0) * 1e3)
-        return times
-
-    steps(2)  # warm-up: kernel build, allocator, plans
-    free = steps(FREE_STEPS)
-    print(f"train_step B={bsz} {m.cart_pixel_width}^2 N={spec.n_scan} M={spec.n_map}, "
-          f"{FREE_STEPS} steps without instrumentation: median "
-          f"{statistics.median(free):.1f} ms (min {min(free):.1f}, max {max(free):.1f})",
-          flush=True)
-
-    activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        (wall,) = steps(1)
-    rows, busy = device_summary(prof)
-    launches = sum(n for n, _ in rows.values())
-    total = sum(t for _, t in rows.values())
-    if launches:
-        step = statistics.median(free)
-        print(f"profiled step: {launches} kernel launches, device busy {busy:.1f} ms "
-              f"(summed kernel time {total:.1f} ms), idle {100 * (1 - busy / step):.1f}% "
-              f"of the uninstrumented median step; the profiled step took {wall:.1f} ms "
-              f"on the host clock")
-        groups: dict[str, tuple[int, float]] = {}
-        for name, (n, t) in rows.items():
-            gn, gt = groups.get(_group(name), (0, 0.0))
-            groups[_group(name)] = (gn + n, gt + t)
-        for g, (n, t) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
-            print(f"  group {g:26s} {t:9.2f} ms  x{n:5d}  {100 * t / total:5.1f}%")
-        for name, (n, t) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]:
-            print(f"  {t:9.2f} ms  x{n:5d}  {name[:110]}")
-    else:
-        print(f"profiled step: host clock {wall:.1f} ms; device time not measured "
-              f"(no CUDA kernels traced on {device})")
+        torch.cuda.reset_peak_memory_stats(device)
+    trainer.capture_train_step(state, batch)
+
+    def timer(step_fn):
+        def steps(n: int) -> list[float]:
+            times = []
+            for _ in range(n):
+                _sync(device)
+                t0 = time.perf_counter()
+                step_fn()
+                _sync(device)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return times
+        return steps
+
+    steps = timer(lambda: trainer.train_step(state, batch))
+    label = f"train_step B={bsz} {m.cart_pixel_width}^2 N={spec.n_scan} M={spec.n_map} {m.dtype}"
+    free, prof_out = profile_paths(label, steps, device)
+    eval_batch = synthetic_batch(3, cfg.train.batch_size_test, spec, device=device)
+    eval_free, eval_prof = profile_paths(
+        f"eval_step B={cfg.train.batch_size_test}",
+        timer(lambda: trainer.eval_step(state.params, eval_batch)), device)
 
     phases: dict[str, list[float]] = {}
 
@@ -166,6 +204,7 @@ def main(argv=None) -> dict:
         return wrapper
 
     with contextlib.ExitStack() as stack:
+        stack.enter_context(eager())  # a synchronise cannot be captured in a graph
         for target, attr, name in (
             (trainer.policy, "compute_mask", "unet_forward"),
             (policy_module, "icp", "icp_forward"),
@@ -181,8 +220,9 @@ def main(argv=None) -> dict:
           f"ms): " + ", ".join(f"{k} {v:.2f} ms" for k, v in phase_ms.items()))
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else None
     print(f"peak device memory: {'not measured' if peak is None else f'{peak:.0f} MiB'}")
-    return {"step_ms": free, "busy_ms": busy, "launches": launches, "phases_ms": phase_ms,
-            "peak_mib": peak}
+    return {"step_ms": free, "profiled": prof_out, "eval_ms": eval_free, "eval_profiled": eval_prof,
+            "phases_ms": phase_ms, "peak_mib": peak,
+            "launches": sum(p["launches"] for p in [*prof_out.values(), *eval_prof.values()])}
 
 
 if __name__ == "__main__":

@@ -8,9 +8,14 @@ checkpoints → a final validation of the best parameters. One
 lookup, the unrolled differentiable ICP and the 6-term loss, then the
 backward pass and the optimizer update.
 
-The port runs eagerly on one device. The optimizer updates the parameters
-in place (``TrainState.params`` are the tensors it owns), where the JAX
-step returns new arrays; a caller that needs the old values copies them.
+The port runs on one device. The optimizer updates the parameters in place
+(``TrainState.params`` are the tensors it owns), where the JAX step returns
+new arrays; a caller that needs the old values copies them. Where the JAX
+step is one compiled program, the port's train step on the card is one
+CUDA graph, captured once per state and batch shapes and then replayed
+(:mod:`mm_masking_tpu_torch.graphs`); the eval step's solve replays its
+own graphs. ``ops.kernels.eager()`` runs both eagerly for comparison, and
+on the CPU they always run eagerly.
 The JAX package's image artifacts (PNG masks) and remote uploader are not
 ported: the port logs its scalars to the JSONL log only.
 """
@@ -25,8 +30,10 @@ from typing import Callable, Iterable
 import torch
 
 from mm_masking_tpu_torch.config import Config
+from mm_masking_tpu_torch.graphs import CapturedStep
 from mm_masking_tpu_torch.models.policy import LearnICPWeightPolicy
 from mm_masking_tpu_torch.ops import extract_bev_from_pts
+from mm_masking_tpu_torch.ops.kernels import use_graphs
 from mm_masking_tpu_torch.train.checkpoint import latest_epoch, load_checkpoint, save_checkpoint
 from mm_masking_tpu_torch.train.loss import (
     LossComponents,
@@ -46,6 +53,17 @@ class TrainState:
     epoch: int
     best_norm: float
     generator: torch.Generator  # dropout masks, on the trainer's device
+    # The train step's CUDA graphs, by batch shapes and options (on the card
+    # only). They read and write this state's parameters, optimizer tensors
+    # and generator: load new values into those in place (``restore`` does),
+    # never replace them.
+    graphs: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+
+@dataclasses.dataclass
+class _TrainGraph:
+    inputs: list[torch.Tensor]  # static batch leaves, in _leaves order
+    step: CapturedStep
 
 
 def to_device(batch, device: torch.device):
@@ -53,6 +71,19 @@ def to_device(batch, device: torch.device):
     if isinstance(batch, dict):
         return {k: to_device(v, device) for k, v in batch.items()}
     return batch.to(device)
+
+
+def _leaves(batch, path: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
+    """(key path, tensor) of each leaf of a batch, in its dicts' order."""
+    if isinstance(batch, dict):
+        return [leaf for k, v in batch.items() for leaf in _leaves(v, path + (k,))]
+    return [(path, batch)]
+
+
+def _clone(batch):
+    if isinstance(batch, dict):
+        return {k: _clone(v) for k, v in batch.items()}
+    return batch.clone()
 
 
 class Trainer:
@@ -63,6 +94,7 @@ class Trainer:
         self.policy = LearnICPWeightPolicy(cfg, self.device)
         self.logger = logger or MetricsLogger(cfg.train.checkpoint_dir)
         self._trained = [name for name, _ in self.policy.unet.named_parameters()]
+        self._pool = None  # the memory pool its train-step graphs share
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int | None = None) -> TrainState:
@@ -84,7 +116,23 @@ class Trainer:
     def train_step(self, state: TrainState, batch: dict, mask_losses_active: bool = True):
         """One step → (state, loss, LossComponents, grad_norm). The state's
         parameters and optimizer are updated in place; a step whose gradients
-        are not finite updates nothing and is counted by the optimizer."""
+        are not finite updates nothing and is counted by the optimizer.
+
+        On the card the step is a CUDA graph: the first call for this state
+        and these batch shapes warms the step up (and undoes what that run
+        changed), captures it, and every call replays it on the batch copied
+        into the graph's inputs. A failed capture raises."""
+        if use_graphs(self.device):
+            loss, comp, grad_norm = self._replay_train_step(state, batch, mask_losses_active)
+        else:
+            loss, comp, grad_norm = self._step(state, batch, mask_losses_active)
+        state.step += 1
+        return state, loss, comp, grad_norm
+
+    def _step(self, state: TrainState, batch: dict, mask_losses_active: bool):
+        """The step's work, run eagerly or captured: forward with dropout,
+        loss, gradients, grad_norm and the optimizer's update; nothing in it
+        reads the device from the host."""
         cfg = self.cfg
         out = self.policy.apply(
             state.params, batch["loc_data"], batch["map_data"],
@@ -101,8 +149,56 @@ class Trainer:
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         state.opt.step(grads)
-        state.step += 1
-        return state, loss.detach(), comp, grad_norm
+        return loss.detach(), comp, grad_norm
+
+    def capture_train_step(self, state: TrainState, batch: dict,
+                           mask_losses_active: bool = True) -> None:
+        """Capture the train step's graph for this state and these batch
+        shapes now, if it is not captured yet (``train_step`` does it at its
+        first call); the state is left as it was. A no-op off the card."""
+        if use_graphs(self.device):
+            self._train_graph(state, batch, mask_losses_active)
+
+    def _train_graph(self, state: TrainState, batch: dict, mask_losses_active: bool
+                     ) -> _TrainGraph:
+        key = (self.cfg, mask_losses_active,
+               tuple((path, t.shape, t.dtype) for path, t in _leaves(batch)))
+        if key not in state.graphs:
+            state.graphs[key] = self._capture_train_step(state, batch, mask_losses_active)
+        return state.graphs[key]
+
+    def _replay_train_step(self, state: TrainState, batch: dict, mask_losses_active: bool):
+        graph = self._train_graph(state, batch, mask_losses_active)
+        for dst, (_, src) in zip(graph.inputs, _leaves(batch)):
+            dst.copy_(src)
+        loss, comp, grad_norm = graph.step.replay()
+        # Copies: the next replay overwrites the graph's outputs.
+        return loss.clone(), LossComponents(*(c.clone() for c in comp)), grad_norm.clone()
+
+    def _capture_train_step(self, state: TrainState, batch: dict,
+                            mask_losses_active: bool) -> _TrainGraph:
+        """Capture the step on static copies of the batch. The warm-up run
+        before the capture is undone: parameters, optimizer state and the
+        dropout generator are put back as they were."""
+        static = _clone(batch)
+        mutable = state.opt.tensors()
+        # Detached: a clone in the autograd graph would keep the parameters'
+        # gradient accumulators alive on this stream.
+        saved = [t.detach().clone() for t in mutable]
+        gen_state = state.generator.get_state()
+
+        def undo():
+            with torch.no_grad():
+                for t, v in zip(mutable, saved):
+                    t.copy_(v)
+            state.generator.set_state(gen_state)
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        step = CapturedStep(lambda: self._step(state, static, mask_losses_active),
+                            self.device, undo=undo, generators=(state.generator,),
+                            pool=self._pool)
+        return _TrainGraph([t for _, t in _leaves(static)], step)
 
     # ------------------------------------------------------------- eval step
     @torch.inference_mode()

@@ -16,7 +16,12 @@ from mm_masking_tpu_torch.benchmarks.probe_conv import CHECKS, FULL, Case, check
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.models.unet import conv3x3_shapes
-from mm_masking_tpu_torch.ops.kernels import launch_counts, plain_versions, reset_launch_counts
+from mm_masking_tpu_torch.ops.kernels import (
+    eager,
+    launch_counts,
+    plain_versions,
+    reset_launch_counts,
+)
 from mm_masking_tpu_torch.ops.kernels import conv2d as tconv
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from mm_masking_tpu_torch.ops.kernels._build import library
@@ -117,16 +122,42 @@ def test_stripe_dispatcher_matches_plain(cuda):
     q_s, key_s, use_x = tnn.stripe_sort_target(torch.from_numpy(q).to(cuda))
     p = (q_s[:, :3800:7][:, :500] + 0.3).contiguous()
     gate = torch.tensor([True, False, True], device=cuda)
-    # window 2048: stripe mode; 256: the tiles outgrow the budget → dense.
-    for window, mode in ((2048, "nn_stripe"), (256, "nn_argmin")):
+    # window 2048: each tile scans its own blocks; 256: the tiles outgrow the
+    # budget, and K4 scans the whole map (the dense result), chosen on the
+    # device.
+    for window in (2048, 256):
         reset_launch_counts()
         idx, d2 = tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, 5.0,
                                                  window=window, tn=128, refresh=gate)
-        assert launch_counts()[mode] == 1 and sum(launch_counts().values()) == 1
+        assert launch_counts()["nn_stripe"] == 1 and sum(launch_counts().values()) == 1
         with plain_versions():
             idx_p, d2_p = tnn.nn_argmin_stripe_presorted(
                 p, q_s, key_s, use_x, 5.0, window=window, tn=128, refresh=gate)
         assert torch.equal(idx[gate], idx_p[gate]) and torch.equal(d2[gate], d2_p[gate])
+    idx_d, d2_d = tnn.nn_argmin(p, q_s)
+    assert torch.equal(idx[gate], idx_d[gate]) and torch.equal(d2[gate], d2_d[gate])
+
+
+def test_full_range_stripe_scan_is_the_dense_kernel(cuda):
+    """K4 over every block from block 0 (the over-budget select) gives the
+    dense kernel's indices and the same d2 bits; ties go to the first map
+    row."""
+    rng = np.random.default_rng(15)
+    B, N, M, tn, tm = 3, 1024, 8192, 256, 1024
+    q = rng.uniform(-40, 40, (B, M, 3)).astype(np.float32)
+    q[:, -100:] = 1000.0
+    q[:, 4000] = q[:, 17]  # exact duplicates: the first occurrence wins
+    q[:, 6000] = q[:, 5999]
+    p = rng.uniform(-40, 40, (B, N, 3)).astype(np.float32)
+    p[:, 5] = q[:, 17]
+    p[:, 6] = q[:, 5999]
+    p, q = torch.from_numpy(p).to(cuda), torch.from_numpy(q).to(cuda)
+    start = torch.zeros((B, N // tn), dtype=torch.int32, device=cuda)
+    nblk = torch.full_like(start, M // tm)
+    idx, d2 = tnn.nn_stripe(p, q, start, nblk, tm)
+    idx_d, d2_d = tnn.nn_argmin(p, q)
+    assert torch.equal(idx, idx_d) and torch.equal(d2.view(torch.int32), d2_d.view(torch.int32))
+    assert (idx[:, 5] == 17).all() and (idx[:, 6] == 5999).all()
 
 
 def test_bf16_eval_step_matches_plain(cuda):
@@ -263,12 +294,19 @@ def test_train_step_runs_the_kernels(cuda, dtype):
     trainer = Trainer(cfg, cuda)
     batch = synthetic_batch(5, 4, spec, device=cuda)
     state = trainer.init_state(2)
+    n_conv = 2 * 3 + 4 * 2
+    want = (n_conv, n_conv - 1, n_conv)
     reset_launch_counts()
     _, loss, _, gnorm = trainer.train_step(state, batch)
+    # The first call warms the step up, captures it and replays it: each
+    # kernel launched twice; a later call replays only.
     counts = launch_counts()
-    n_conv = 2 * 3 + 4 * 2
-    assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == (
-        n_conv, n_conv - 1, n_conv)
+    assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == tuple(
+        2 * n for n in want)
+    reset_launch_counts()
+    trainer.train_step(state, batch)
+    counts = launch_counts()
+    assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == want
     assert counts["nn_stripe"] + counts["nn_argmin"] >= 3
     ref = trainer.init_state(2)
     with plain_versions():
@@ -285,6 +323,92 @@ def test_train_step_runs_the_kernels(cuda, dtype):
         # normalisation, so it reaches ~1e7 on both paths (and in the JAX
         # package) and depends on which pixels tie.
         assert abs(loss.item() - loss_p.item()) <= 2e-2 * abs(loss_p.item())
+
+
+def small_trainer(cuda, **model):
+    spec = SyntheticSpec(n_scan=1024, n_map=4096, polar_shape=(128, 512),
+                         cart_pixel_width=128, res=0.25, cart_resolution=0.5,
+                         max_range=30.0, min_range=2.0, pos_std=0.4, rot_std=0.15)
+    cfg = Config(model=ModelConfig(enc_channels=(4, 8, 16), cart_pixel_width=128,
+                                   cart_resolution=0.5, res=0.25, polar_shape=(128, 512),
+                                   **model))
+    return Trainer(cfg, cuda), spec
+
+
+def test_train_step_graph_replays_match_eager_steps(cuda):
+    """Three replays of the captured train step (dropout on, its generator
+    registered with the graph) against three eager kernel-path steps from
+    the same seed, each from the state the replay started from: loss and
+    grad_norm within 1e-6 relative, the parameters within 1e-5 of the
+    largest |p|, and the dropout generator advanced alike. (Each step starts
+    the eager state from the graph's, so that the atomics of the backward's
+    sums, which differ between any two runs, do not accumulate.) The
+    capture's warm-up leaves the state as it was."""
+    trainer, spec = small_trainer(cuda, max_iter=3, dropout=0.05)
+    batch = synthetic_batch(6, 4, spec, device=cuda)
+    graph_state, eager_state = trainer.init_state(3), trainer.init_state(3)
+    trainer.capture_train_step(graph_state, batch)
+    scale = max(v.abs().max().item() for v in graph_state.params.values())
+    for step in range(3):
+        with torch.no_grad():
+            for a, b in zip(eager_state.opt.tensors(), graph_state.opt.tensors()):
+                a.copy_(b)
+        assert torch.equal(eager_state.generator.get_state(), graph_state.generator.get_state())
+        _, loss, _, gn = trainer.train_step(graph_state, batch)
+        with eager():
+            _, loss_e, _, gn_e = trainer.train_step(eager_state, batch)
+        assert abs(loss.item() - loss_e.item()) <= 1e-6 * abs(loss_e.item()), step
+        assert abs(gn.item() - gn_e.item()) <= 1e-6 * gn_e.item(), step
+        for k, v in eager_state.params.items():
+            assert (graph_state.params[k] - v).abs().max().item() <= 1e-5 * scale, (step, k)
+    assert len(graph_state.graphs) == 1 and not eager_state.graphs
+    assert int(graph_state.opt.count) == int(eager_state.opt.count) == 3
+    assert torch.equal(graph_state.generator.get_state(), eager_state.generator.get_state())
+
+
+def test_graph_eval_step_matches_eager(cuda):
+    """The eval solve's replayed chunks against the eager loop: the same
+    iteration count, poses within 1e-6 m / 1e-5 deg."""
+    trainer, spec = small_trainer(cuda)
+    params = trainer.init_state(4).params
+    batch = synthetic_batch(7, 8, spec, device=cuda)
+    loc, mp, T0 = batch["loc_data"], batch["map_data"], batch["transforms"]["T_ml_init"]
+    with torch.inference_mode():
+        trainer.policy.apply(params, loc, mp, T0)  # captures the chunk
+        out = trainer.policy.apply(params, loc, mp, T0)
+        with eager():
+            ref = trainer.policy.apply(params, loc, mp, T0)
+    assert int(out.icp_info["iterations"]) == int(ref.icp_info["iterations"])
+    assert out.icp_info["stop_tests"] <= 10
+    dt = (out.T_pred[:, :3, 3] - ref.T_pred[:, :3, 3]).norm(dim=-1).max().item()
+    def yaw(T):
+        return torch.rad2deg(torch.atan2(T[:, 1, 0], T[:, 0, 0]))
+
+    dyaw = (yaw(out.T_pred) - yaw(ref.T_pred)).abs().max().item()
+    assert dt <= 1e-6 and dyaw <= 1e-5
+
+
+def test_train_step_makes_no_synchronising_call(cuda):
+    """After the warm-up, an eager kernel-path train step and a replayed one
+    under torch.cuda.set_sync_debug_mode("error"): no call waits on the card
+    (the stripe dispatch, the non-finite skip and the planar solve's
+    indexing read nothing back)."""
+    trainer, spec = small_trainer(cuda, max_iter=3)
+    batch = synthetic_batch(8, 4, spec, device=cuda)
+    state = trainer.init_state(5)
+    trainer.train_step(state, batch)  # capture
+    with eager():
+        trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with eager():
+            trainer.train_step(state, batch)
+        trainer.train_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(state.opt.count) == 4
 
 
 # Each probe kernel and P2 variant at a small shape (the probe's first check

@@ -9,6 +9,9 @@ held to ``jax.grad``: ∂T/∂weight within 1e-3 of its largest entry.
 from __future__ import annotations
 
 import dataclasses
+import importlib
+import math
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +66,64 @@ def test_inference_icp_matches_jax(icp_type, stripe, dim):
     np.testing.assert_allclose(T_g[:, :3, :3], T_w[:, :3, :3], rtol=0, atol=1e-5)
     assert abs(got["iterations"] - int(want["iterations"])) <= 1
     assert np.abs(T_g[:, 1, 0]).max() < 1e-3  # recovered the identity
+
+
+def staggered_scene(seed=3):
+    """scene() with initial offsets scaled per item, so that the items stop
+    at different iterations: one within 3, one within 7, two after 20."""
+    src, tgt, _, weight = scene(seed=seed, B=4)
+    xi = np.zeros((4, 6), np.float32)
+    scale = np.array([0.02, 0.3, 1.0, 2.5], np.float32)
+    xi[:, 0], xi[:, 1], xi[:, 5] = 0.5 * scale, -0.4 * scale, 0.08 * scale
+    return src, tgt, se3_exp(torch.from_numpy(xi)).numpy(), weight
+
+
+@pytest.mark.parametrize("stripe", [True, False])
+@pytest.mark.parametrize("max_iterations", [7, 50])
+def test_chunked_inference_icp_matches_the_per_iteration_loop(monkeypatch, max_iterations,
+                                                              stripe):
+    """The inference solve reads its stop test once per chunk of
+    STOP_TEST_EVERY iterations and counts iterations on the device. Against
+    the same solve testing after every iteration (chunks of 1): the same
+    T, delta_norm and iterations, bit for bit, with items that stop at
+    different iterations and a max_iterations (7) that is no multiple of
+    the chunk; against the JAX icp: T within its limits and the same count."""
+    icp_module = importlib.import_module("mm_masking_tpu_torch.dicp.icp")
+    src, tgt, T_init, weight = staggered_scene()
+    cfg = dict(icp_type="pt2pt", max_iterations=max_iterations, tolerance=1e-5,
+               differentiable=False, nn_stripe=stripe, nn_stripe_window=512,
+               nn_stripe_tile=64)
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
+    reads = []
+    to_bool = torch.Tensor.__bool__
+
+    def counted(self):
+        reads.append(1)
+        return to_bool(self)
+
+    with mock.patch.object(torch.Tensor, "__bool__", counted):
+        got = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(**cfg))
+    k = icp_module.STOP_TEST_EVERY
+    assert k > 1 and 7 % k  # chunks of several iterations; 7 is no multiple
+    assert len(reads) == got["stop_tests"] <= math.ceil(max_iterations / k)
+    monkeypatch.setattr(icp_module, "STOP_TEST_EVERY", 1)
+    loop = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(**cfg))
+    assert loop["stop_tests"] == min(max_iterations - 1, int(loop["iterations"]))
+    for name in ("T", "delta_norm", "iterations"):
+        assert torch.equal(got[name], loop[name]), name
+    stopped = (got["delta_norm"] < 1e-5).numpy()
+    if max_iterations == 7:
+        assert int(got["iterations"]) == 7 and stopped[:2].all() and not stopped[2:].any()
+    else:
+        assert stopped.all() and int(got["iterations"]) > 20
+
+    want = jicp(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(T_init),
+                weight=jnp.asarray(weight), cfg=JICPConfig(**cfg))
+    T_w, T_g = np.asarray(want["T"]), got["T"].numpy()
+    np.testing.assert_allclose(T_g[:, :3, 3], T_w[:, :3, 3], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(T_g[:, :3, :3], T_w[:, :3, :3], rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(np.asarray(want["delta_norm"]) < 1e-5, stopped)
+    assert abs(int(got["iterations"]) - int(want["iterations"])) <= (max_iterations == 50)
 
 
 @pytest.mark.parametrize("mode", ["nn_refresh", "implicit"])

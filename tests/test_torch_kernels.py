@@ -7,6 +7,10 @@ version on the card.
 """
 from __future__ import annotations
 
+import contextlib
+from types import SimpleNamespace
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +23,7 @@ from mm_masking_tpu.ops.pallas.conv2d import _dk_nhcw_raw, _pad_cw, _pick_th, co
 from mm_masking_tpu_torch.benchmarks.timing import bound_ms
 from mm_masking_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
+from mm_masking_tpu_torch.ops.kernels import _build
 from mm_masking_tpu_torch.ops.kernels._build import use_kernel
 from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3, conv3x3_dk_plain
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
@@ -322,3 +327,126 @@ def test_wrappers_refuse_devices_without_a_path():
         conv3x3(x, w, torch.empty(8, device="meta"))
     with pytest.raises(ValueError, match="one CPU or CUDA device"):
         use_kernel(torch.empty(1), torch.empty(1, device="meta"))
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Every Python-level read of a tensor's value (bool, int, float,
+    index, item, tolist) raises inside the block: on the card each is a
+    blocking copy to the host, and none can be captured in a CUDA graph."""
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a tensor's value was read on the host")
+
+    with contextlib.ExitStack() as stack:
+        for name in ("__bool__", "__int__", "__float__", "__index__", "item", "tolist"):
+            stack.enter_context(mock.patch.object(torch.Tensor, name, refuse))
+        yield
+
+
+@pytest.mark.parametrize("refresh", [None, [True, False, True]])
+def test_stripe_dispatcher_over_budget_scans_the_whole_map(monkeypatch, refresh):
+    """An item whose scan spans the whole map puts a tile over the block
+    budget: the dispatcher then hands K4 block 0 and every block, with no
+    read from the device (the reference's lax.cond as a select), and that
+    full-range stripe scan gives the dense result bit for bit. Items the
+    refresh gate skips search nothing."""
+    rng = np.random.default_rng(12)
+    B, N, M, trim, tn, window = 3, 256, 2048, 3.0, 64, 512
+    q = np.full((B, M, 3), 1000.0, np.float32)
+    q[:, :1900, :2] = rng.uniform(-60, 60, (B, 1900, 2))
+    q[:, :1900, 2] = 0.0
+    q[:, 700] = q[:, 300]  # an exact duplicate: the first occurrence must win
+    q_s, key_s, use_x = tnn.stripe_sort_target(torch.from_numpy(q))
+    p = torch.from_numpy(rng.uniform(-60, 60, (B, N, 3)).astype(np.float32))
+    p[..., 2] = 0.0  # unsorted: every tile spans the map
+    gate = None if refresh is None else torch.tensor(refresh)
+    calls = []
+
+    def k4(p_, q3, start, nblk, tm, q4=None):
+        calls.append(("nn_stripe", start.clone(), nblk.clone(), tm))
+        return (torch.zeros(p_.shape[:2], dtype=torch.int32),
+                torch.zeros(p_.shape[:2], dtype=torch.float32))
+
+    def k1(*args):
+        calls.append(("nn_argmin",))
+        raise AssertionError("the stripe dispatcher took the dense kernel")
+
+    monkeypatch.setattr(tnn, "nn_stripe", k4)
+    monkeypatch.setattr(tnn, "nn_argmin", k1)
+    with no_host_reads():
+        tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, trim, window=window, tn=tn,
+                                       refresh=gate)
+    (name, start, nblk, tm), = calls
+    live = torch.ones(B, dtype=torch.bool) if gate is None else gate
+    assert tm == 512 and start.dtype == nblk.dtype == torch.int32
+    assert (start == 0).all()
+    assert (nblk[live] == M // tm).all() and (nblk[~live] == 0).all()
+    idx, d2 = tnn.nn_stripe_plain(p, q_s, start, nblk, tm)
+    idx_d, d2_d = tnn.nn_argmin_plain(p, q_s)
+    rows = live[:, None].expand(B, N)
+    np.testing.assert_array_equal(idx[rows].numpy(), idx_d[rows].numpy())
+    assert torch.equal(d2[rows], d2_d[rows])  # the same bits
+    idx_j, d2_j = jnn.nn_argmin_pallas(jnp.asarray(p.numpy()), jnp.asarray(q_s.numpy()),
+                                       tn=128, tm=512, interpret=True)
+    np.testing.assert_array_equal(idx[rows].numpy(), np.asarray(idx_j)[rows.numpy()])
+
+
+def test_stripe_dispatcher_within_budget_keeps_each_tiles_blocks(monkeypatch):
+    """A scan grouped by key keeps its tiles' own block ranges, again with
+    no read from the device."""
+    p, q, *_ = stripe_case(seed=13, B=2, N=256, M=2048)
+    q_s, key_s, use_x = tnn.stripe_sort_target(torch.from_numpy(q))
+    p = torch.from_numpy(p)
+    calls = []
+
+    def k4(p_, q3, start, nblk, tm, q4=None):
+        calls.append((start.clone(), nblk.clone(), tm))
+        return (torch.zeros(p_.shape[:2], dtype=torch.int32),
+                torch.zeros(p_.shape[:2], dtype=torch.float32))
+
+    monkeypatch.setattr(tnn, "nn_stripe", k4)
+    with no_host_reads():
+        tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, 2.0, window=512, tn=64)
+    (start, nblk, tm), = calls
+    want_start, want_nblk = tnn.stripe_blocks(p, key_s, use_x, 2.0, 64, 512)
+    assert torch.equal(start, want_start) and torch.equal(nblk, want_nblk)
+    assert int(nblk.max()) <= 512 // tm + 1
+
+
+def test_kernels_launch_on_their_inputs_device(monkeypatch):
+    """A launch makes the inputs' card current and takes that card's
+    current stream, whichever card is current before."""
+    entered = []
+
+    class Device:  # stands in for torch.cuda.device
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            entered.pop()
+
+    calls = []
+
+    class Library:
+        @staticmethod
+        def mm_nn_argmin(*args):
+            calls.append((entered[-1] if entered else None, args))
+            return 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(
+        cuda_stream=100 + torch.device(device).index))
+    _build.launch("mm_nn_argmin", torch.device("cuda", 1), 7, 8)
+    assert calls == [(torch.device("cuda", 1), (7, 8, 101))]
+    assert entered == []
+
+
+def test_use_kernel_refuses_cuda_inputs_on_two_cards():
+    a, b = (SimpleNamespace(device=torch.device("cuda", i)) for i in (0, 1))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        use_kernel(a, b)
+    assert use_kernel(a, a)

@@ -4,9 +4,11 @@ train step against the JAX ``Trainer._train_step`` from the same converted
 parameters, and the fit/resume/CLI loop at a tiny size."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -124,14 +126,18 @@ def test_training_forward_options(tmp_path):
     assert out.icp_info["delta_norms"].shape == (3, 2)
 
 
-@pytest.mark.parametrize("kind", ["adam_cosine_clip", "sgd_constant"])
+@pytest.mark.parametrize("kind", ["adam_cosine_clip", "sgd_constant", "sgd_cosine_clip"])
 def test_optimizer_matches_optax(kind):
-    """Five updates, the third with a NaN gradient (dropped by both)."""
+    """Five updates, the third with a NaN gradient (dropped by both); the
+    schedule's rate is taken on the device from the count of applied
+    updates."""
     if kind == "sgd_constant":
         kw = dict(optimizer="sgd", learning_rate=1e-2)
     else:
         kw = dict(learning_rate=1e-2, lr_schedule="cosine", lr_decay_steps=6,
                   lr_warmup_steps=2, clip_value=0.05)
+        if kind.startswith("sgd"):
+            kw["optimizer"] = "sgd"
     tx = jmake_optimizer(JConfig(train=JTrainConfig(**kw)))
     rng = np.random.default_rng(1)
     p0 = {"a": rng.standard_normal((2, 3)).astype(np.float32),
@@ -155,10 +161,120 @@ def test_optimizer_matches_optax(kind):
                                        rtol=0, atol=1e-6)
     assert opt.total_notfinite == int(jstate.total_notfinite) == 1
     assert opt.count == 4
+    assert opt.count.dtype == opt.total_notfinite.dtype == torch.int64
     if kind != "sgd_constant":
         sched = optax.warmup_cosine_decay_schedule(0.0, 1e-2, 2, 6)
         np.testing.assert_allclose([opt.schedule(c) for c in range(9)],
                                    [float(sched(c)) for c in range(9)], rtol=1e-6, atol=1e-9)
+        rates = [opt.schedule(torch.tensor(c)) for c in range(9)]  # from a count tensor
+        assert all(r.dtype == torch.float32 and r.shape == () for r in rates)
+        np.testing.assert_allclose([float(r) for r in rates],
+                                   [float(sched(jnp.int32(c))) for c in range(9)],
+                                   rtol=1e-6, atol=1e-9)
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Every Python-level read of a tensor's value raises inside the block."""
+    def refuse(self, *args, **kwargs):
+        raise AssertionError("a tensor's value was read on the host")
+
+    with contextlib.ExitStack() as stack:
+        for name in ("__bool__", "__int__", "__float__", "__index__", "item", "tolist"):
+            stack.enter_context(mock.patch.object(torch.Tensor, name, refuse))
+        yield
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_optimizer_skips_a_non_finite_step_on_the_device(kind, bad):
+    """apply_if_finite's contract with no read from the device: a step
+    whose gradients hold a non-finite value leaves the parameters, the
+    moments and the count bit for bit as they were and adds 1 to
+    total_notfinite; the next finite step updates as usual."""
+    rng = np.random.default_rng(2)
+    params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_(True)
+              for s in ((3, 2), (5,))]
+    opt = make_optimizer(TrainConfig(optimizer=kind, learning_rate=1e-2, lr_schedule="cosine",
+                                     lr_decay_steps=8, lr_warmup_steps=1, clip_value=0.5),
+                         params)
+
+    def grads(poison=False):
+        g = [torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)) for p in params]
+        if poison:
+            g[1][2] = bad
+        return g
+
+    with no_host_reads():
+        opt.step(grads())
+        before = [t.clone() for t in opt.tensors()]
+        applied = opt.step(grads(poison=True))
+    assert applied.dtype == torch.bool and not bool(applied)
+    after = opt.tensors()
+    assert int(opt.total_notfinite) == int(before[-1]) + 1 == 1
+    for a, b in zip(after[:-1], before[:-1]):  # parameters, moments, count
+        assert torch.equal(a, b)
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b)
+    with no_host_reads():
+        applied = opt.step(grads())
+    assert bool(applied) and int(opt.count) == 2 and int(opt.total_notfinite) == 1
+    assert not torch.equal(params[0], before[0])
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_optimizer_state_dict_keeps_the_checkpoint_format(kind):
+    """state_dict() as before (torch.optim's ``inner``, int counters), so
+    checkpoints written by the torch.optim-based optimizer still load, and
+    new ones load into torch.optim."""
+    rng = np.random.default_rng(3)
+    shapes = ((4, 3), (2,))
+    p_old = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_(True)
+             for s in shapes]
+    if kind == "adam":
+        old = torch.optim.Adam(p_old, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        old = torch.optim.SGD(p_old, lr=1e-3, momentum=1.0, nesterov=True)
+    for _ in range(2):
+        for p in p_old:
+            p.grad = torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32))
+        old.step()
+    ckpt = {"inner": old.state_dict(), "count": 2, "total_notfinite": 1}
+    params = [p.detach().clone().requires_grad_(True) for p in p_old]
+    opt = make_optimizer(TrainConfig(optimizer=kind, learning_rate=1e-3), params)
+    opt.load_state_dict(ckpt)
+    keys = ("exp_avg", "exp_avg_sq") if kind == "adam" else ("momentum_buffer",)
+    for i, p in enumerate(p_old):
+        for key, moments in zip(keys, opt.moments):
+            assert torch.equal(moments[i], old.state[p][key])
+    assert int(opt.count) == 2 and int(opt.total_notfinite) == 1
+    saved = opt.state_dict()
+    assert saved["count"] == 2 and saved["total_notfinite"] == 1
+    assert isinstance(saved["count"], int) and isinstance(saved["total_notfinite"], int)
+    fresh = torch.optim.Adam(p_old) if kind == "adam" else torch.optim.SGD(
+        p_old, lr=1e-3, momentum=1.0, nesterov=True)
+    fresh.load_state_dict(saved["inner"])
+    for i, p in enumerate(p_old):
+        for key, moments in zip(keys, opt.moments):
+            assert torch.equal(fresh.state[p][key], moments[i])
+    before_first = make_optimizer(TrainConfig(optimizer=kind), params)
+    before_first.load_state_dict({"inner": {"state": {}, "param_groups": []}, "count": 0,
+                                  "total_notfinite": 0})
+    assert all(not m.any() for ms in before_first.moments for m in ms)
+
+
+def test_train_step_reads_nothing_from_the_device(tmp_path):
+    """A whole train step (dense association at this size) with no
+    Python-level read of a tensor's value: what the step captured as a CUDA
+    graph on the card runs here eagerly."""
+    trainer = Trainer(tiny_config(tmp_path, dropout=0.05), "cpu")
+    state = trainer.init_state(0)
+    batch = synthetic_batch(0, 4, SyntheticSpec(**SPEC))
+    with no_host_reads():
+        _, loss, comp, grad_norm = trainer.train_step(state, batch)
+        trainer.train_step(state, batch)
+    assert np.isfinite(float(loss)) and np.isfinite(float(grad_norm))
+    assert int(state.opt.count) == 2 and state.step == 2
 
 
 def test_train_step_matches_jax(tmp_path):
