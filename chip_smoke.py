@@ -10,12 +10,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 2. build   compiles ``mm_masking_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
            one process per source; prints ptxas's registers and spills and
            the count of HMMA (tensor-core) instructions in the SASS of each
-           instantiation of the float32 conv kernel, and fails if one has
-           none.
+           instantiation of the float32 conv kernel and of the bfloat16 dk
+           kernel, and fails if one has none.
 3. kernels each CUDA kernel against its plain PyTorch version at the
            path's shapes: the 3x3 conv's forward, dx and dk at every UNet
-           stage (f32 and bf16 at B = 4, dx and dk also f32 at the train
-           step's B = 16; dk also bitwise across two runs), the dense
+           stage (f32 and bf16 at B = 4 and at the train step's B = 16;
+           dk also bitwise across two runs and against a float64 sum, which
+           alone decides bf16 dk at B = 16, where the plain version's own
+           error nears the kernel-vs-plain limit), the dense
            NN at (4, 4096, 16384) and the stripe NN on a sorted synthetic
            map with mixed block counts, zeros included; then the median time
            of each next to its plain version: the forward and NN at the
@@ -37,9 +39,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            batch of 4096 / 16384 points: the step captured as a CUDA graph,
            then 3 replays. The counters must show every conv forward, dx and
            dk and at least 10 NN launches per step; loss, gradients and
-           updated parameters must be finite; the 3 steps must match 3
-           eager kernel-path steps from the same seed (loss and grad_norm
-           within 1e-6 relative, parameters within 1e-5 of max |p|); the
+           updated parameters must be finite; each replay must match an
+           eager kernel-path step from the state it started from (loss and
+           grad_norm within 1e-6 relative, parameters within 1e-5 of max
+           |p|, optimizer counters and dropout generator equal), and the
+           drift of two eager chains from one seed is logged; the
            first step's loss and grad_norm must match the plain path's; a
            full-width UNet gradient must match the plain path's; then the
            host-clock step of the graph, eager and plain paths and their
@@ -108,7 +112,8 @@ TRIM, TILE = 5.0, 256  # ICPConfig defaults: trim_dist, nn_stripe_tile
 # launch counters that count it). K2 serves the conv's forward and, on the
 # rotated and transposed weight, its backward's dx; its float32 kernel, the
 # one the default Config() runs, is conv3x3_tc.cu, and bfloat16 runs the
-# direct kernel of conv3x3.cu, a row of its own (as is K3's bfloat16 entry):
+# direct kernel of conv3x3.cu, a row of its own (as is K3's bfloat16 entry,
+# the tensor-core GEMM of conv3x3_dk_tc.cu; float32 dk runs conv3x3_dk.cu):
 # the float32 and bfloat16 paths count their launches in separate phases
 # (ROW_PHASES). One NN kernel has two launch modes: the sorted stripe (K4),
 # which the eval and train steps run every ICP iteration, and dense (K1),
@@ -121,7 +126,7 @@ KERNELS = {
                    "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
     "conv3x3_bf16": ("mm_masking_tpu_torch/csrc/conv3x3.cu",
                      "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
-    "conv3x3_dk_bf16": ("mm_masking_tpu_torch/csrc/conv3x3_dk.cu",
+    "conv3x3_dk_bf16": ("mm_masking_tpu_torch/csrc/conv3x3_dk_tc.cu",
                         "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
     "nn_stripe": ("mm_masking_tpu_torch/csrc/nn_assoc.cu",
                   "mm_masking_tpu/ops/pallas/nn_assoc.py:358", ("nn_stripe",)),
@@ -190,21 +195,28 @@ def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
     return works
 
 
+# The tensor-core kernels, by a fragment of their SASS names: K2's float32
+# conv and K3's bfloat16 dk.
+TENSOR_CORE_KERNELS = ("conv3x3_tf32x3_kernel", "conv3x3_dk_mma_bf16")
+
+
 def check_hmma(lib) -> None:
     """Count the HMMA (tensor-core mma) instructions in the SASS of each
-    instantiation of the float32 conv kernel; fail if one has none."""
+    instantiation of the tensor-core kernels; fail if one has none."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts = {}
+    counts = {kernel: {} for kernel in TENSOR_CORE_KERNELS}
     for section in sass.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
-        if "conv3x3_tf32x3_kernel" in name:
-            counts[name] = section.count("HMMA")
-    for name, n in counts.items():
-        log("build", f"{n} HMMA instructions in {name}")
-    if not counts or not all(counts.values()):
-        raise AssertionError(f"the f32 conv kernel's SASS lacks HMMA instructions: {counts}")
+        for kernel in TENSOR_CORE_KERNELS:
+            if kernel in name:
+                counts[kernel][name] = section.count("HMMA")
+    for kernel, found in counts.items():
+        for name, n in found.items():
+            log("build", f"{n} HMMA instructions in {name}")
+        if not found or not all(found.values()):
+            raise AssertionError(f"the SASS of {kernel} lacks HMMA instructions: {found}")
 
 
 def check_conv(device, shapes) -> tuple[float, float, float, float]:
@@ -255,10 +267,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-def check_backward(x, dy, w, label: str) -> tuple[float, float]:
+def check_backward(x, dy, w, label: str, dk_vs_plain: bool = True) -> tuple[float, float]:
     """dx (K2) and dk (K3) vs their plain versions on one set of tensors, dk
     also bitwise across two runs and against a float64 sum; raises beyond
-    the limits and returns (max |Δdx|, max |Δdk|)."""
+    the limits and returns (max |Δdx|, max |Δdk|). ``dk_vs_plain=False``
+    logs dk against the plain version beside the plain version's own error
+    and leaves the decision to the float64 limit (see the caller)."""
     dk = conv3x3_dk(x, dy)
     if not torch.equal(dk, conv3x3_dk(x, dy)):
         raise AssertionError(f"conv3x3_dk {label}: two runs differ")
@@ -274,9 +288,10 @@ def check_backward(x, dy, w, label: str) -> tuple[float, float]:
     dk64 = torch.nn.grad.conv2d_weight(x.double(), dk.shape, dy.double(), padding=1)
     e64, e64_p = rel_err(dk, dk64), rel_err(dk_p, dk64)
     bf = x.dtype == torch.bfloat16
-    log("kernels", f"backward {label} dx rel {e_dx:.3e}, dk rel {e_dk:.3e} (vs float64: "
+    log("kernels", f"backward {label} dx rel {e_dx:.3e}, dk rel {e_dk:.3e}"
+        f"{'' if dk_vs_plain else ' (no limit)'} (vs float64: "
         f"kernel {e64:.3e}, plain {e64_p:.3e}), dk bitwise stable")
-    if e_dk > 1e-4 or e64 > 1e-5 or e_dx > (2e-2 if bf else 1e-4):
+    if (dk_vs_plain and e_dk > 1e-4) or e64 > 1e-5 or e_dx > (2e-2 if bf else 1e-4):
         raise AssertionError(f"conv backward {label}: dx {e_dx}, dk {e_dk}, dk vs "
                              f"float64 {e64}")
     return (dx.float() - dx_p.float()).abs().max().item(), (dk - dk_p).abs().max().item()
@@ -284,14 +299,14 @@ def check_backward(x, dy, w, label: str) -> tuple[float, float]:
 
 def check_conv_backward(device, shapes) -> dict[str, float]:
     """dx (K2) and dk (K3) vs plain at every UNet stage shape, f32 and bf16 at
-    B = 4 and f32 at the train step's B = 16 (K3 splits its work by B); then
+    B = 4 and at the train step's B = 16 (K3 splits its work by B); then
     forward, dx and dk times next to their plain versions at B = 16, summed
     over one step (the first conv takes no dx: its input needs no gradient)."""
     g = torch.Generator().manual_seed(1)
     worst = {"dx_abs": 0.0, "dk_abs": 0.0, "dx_abs_bf16": 0.0, "dk_abs_bf16": 0.0}
 
-    def check(x, dy, w, label):
-        dx_abs, dk_abs = check_backward(x, dy, w, label)
+    def check(x, dy, w, label, dk_vs_plain=True):
+        dx_abs, dk_abs = check_backward(x, dy, w, label, dk_vs_plain)
         suffix = "_bf16" if x.dtype == torch.bfloat16 else ""
         worst["dx_abs" + suffix] = max(worst["dx_abs" + suffix], dx_abs)
         worst["dk_abs" + suffix] = max(worst["dk_abs" + suffix], dk_abs)
@@ -314,6 +329,15 @@ def check_conv_backward(device, shapes) -> dict[str, float]:
             2.0 / (9 * (ci + co)))
         b = torch.zeros(co, device=device)
         check(x, dy, w, f"B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 float32 ")
+        # bf16 dk at B = 16: the plain version (cuDNN's float32 wgrad) is
+        # 7.5e-5 off the float64 sum of these inputs at 64 -> 64, 160^2 (on
+        # the H100), most of the 1e-4 that kernel vs plain may differ by,
+        # while K3 stays within 1e-6 of it. Whether kernel vs plain passes
+        # then depends on the data, not on K3: the float64 limit (1e-5)
+        # decides, and kernel vs plain is logged beside the plain version's
+        # own error.
+        check(*(t.bfloat16() for t in (x, dy, w)),
+              f"B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 bfloat16", dk_vs_plain=False)
         f, fp = in_turns(lambda: conv3x3_plain(x, w, b, True),
                          lambda: conv3x3_forward(x, w, b, True), cuda_ms)
         dx, dxp = in_turns(lambda: conv3x3_dx_plain(dy, w), lambda: conv3x3_dx(dy, w), cuda_ms)
@@ -631,10 +655,17 @@ def time_train(trainer: Trainer, batch, label: str) -> dict[str, tuple[list[floa
     return {path: (t, peaks[path]) for path, t in times.items()}
 
 
+def snapshot(state):
+    """Copies of what a train step updates: the optimizer's tensors
+    (parameters, moments, counters) and the dropout generator's state."""
+    return [t.detach().clone() for t in state.opt.tensors()], state.generator.get_state()
+
+
 def captured_steps(trainer: Trainer, batch, label: str):
     """Capture the train step for a fresh state, then run 3 steps (replays)
-    with the counters from 0: (state, its parameters before and after the
-    first step, the steps, the counters)."""
+    with the counters from 0: (state, its parameters before the first step,
+    the steps, a snapshot of the state before each step and after the last,
+    the counters)."""
     state = trainer.init_state(seed=0)
     p0 = {k: v.detach().clone() for k, v in state.params.items()}
     t0 = time.perf_counter()
@@ -646,9 +677,10 @@ def captured_steps(trainer: Trainer, batch, label: str):
         f"replay, {graph.step.launches}")
     # The main path, through the user's entry point, with counters from 0.
     kernels.reset_launch_counts()
-    steps = [trainer.train_step(state, batch)]
-    p1 = {k: v.detach().clone() for k, v in state.params.items()}
-    steps += [trainer.train_step(state, batch) for _ in range(TRAIN_STEPS - 1)]
+    steps, snaps = [], [snapshot(state)]
+    for _ in range(TRAIN_STEPS):
+        steps.append(trainer.train_step(state, batch))
+        snaps.append(snapshot(state))
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     log(label, f"launches over {TRAIN_STEPS} steps {counts}")
@@ -674,7 +706,76 @@ def captured_steps(trainer: Trainer, batch, label: str):
     if not all(math.isfinite(v) and v > 0 for v in moved.values()):
         raise AssertionError(f"parameters not updated or not finite: {moved}")
     log(label, f"every parameter tensor moved, by at most {max(moved.values()):.3e}")
-    return state, p0, p1, steps, counts
+    return state, p0, steps, snaps, counts
+
+
+def check_replays(trainer: Trainer, batch, steps, snaps) -> tuple[float, float, float]:
+    """Each replay of ``steps`` against an eager kernel-path step from the
+    state that replay started from (``snaps``, from ``captured_steps``);
+    raises beyond the limits and returns the largest (loss, grad_norm,
+    parameter) differences. The state is the parameters, moments, counters
+    and dropout generator: a replay launches the same kernels on the same
+    data as the eager step, and ends in the same state. Each eager step
+    starts from the graph's state, not from its own previous step: the
+    atomics of the upsample's and grid_sample's backward differ between any
+    two runs, and two eager chains of 3 steps from one seed differ in the
+    third step's grad_norm by up to 8.8e-5 relative (on the H100)."""
+    eager_state = trainer.init_state(seed=0)
+    n_params = len(eager_state.opt.params)
+    scale = max(t.abs().max().item() for t in snaps[0][0][:n_params])
+    d_loss_e = d_gnorm_e = d_param_e = 0.0
+    per_step, where = [], ""
+    with kernels.eager():
+        for (before, gen), (after, gen_after), (_, loss, _, gnorm) in zip(snaps, snaps[1:],
+                                                                           steps):
+            with torch.no_grad():
+                for a, b in zip(eager_state.opt.tensors(), before):
+                    a.copy_(b)
+            eager_state.generator.set_state(gen)
+            _, loss_e, _, gnorm_e = trainer.train_step(eager_state, batch)
+            dl = abs(loss.item() - loss_e.item()) / abs(loss_e.item())
+            dg = abs(gnorm.item() - gnorm_e.item()) / gnorm_e.item()
+            d_p = [(a - b).abs().max().item() / scale
+                   for a, b in zip(eager_state.opt.tensors()[:n_params], after)]
+            worst = max(range(n_params), key=d_p.__getitem__)
+            if d_p[worst] >= d_param_e:
+                where = f"{trainer._trained[worst]} after step {len(per_step) + 1}"
+            d_loss_e, d_gnorm_e, d_param_e = (max(d_loss_e, dl), max(d_gnorm_e, dg),
+                                              max(d_param_e, d_p[worst]))
+            per_step.append(f"{dg:.3e}")
+            counters = eager_state.opt.tensors()[-2:]
+            if not (all(torch.equal(a, b) for a, b in zip(counters, after[-2:]))
+                    and torch.equal(eager_state.generator.get_state(), gen_after)):
+                raise AssertionError("a replay and the eager step from its state end with "
+                                     "other optimizer counters or dropout generator states")
+    log("train", f"graph vs eager kernel path, each replay against an eager step from its "
+        f"state: loss rel {d_loss_e:.3e}, grad_norm rel {d_gnorm_e:.3e} (per step "
+        f"{per_step}) over {TRAIN_STEPS} steps; parameters max|d| / max|p| {d_param_e:.3e} "
+        f"in {where}; optimizer counters and dropout generator equal")
+    if d_loss_e > 1e-6 or d_gnorm_e > 1e-6 or d_param_e > 1e-5:
+        raise AssertionError("graph and eager train steps differ beyond loss / grad_norm 1e-6 "
+                             "relative, parameters 1e-5 of max |p|")
+    log_eager_spread(trainer, batch)
+    return d_loss_e, d_gnorm_e, d_param_e
+
+
+def log_eager_spread(trainer: Trainer, batch) -> None:
+    """Log, without a limit, how far two eager kernel-path chains of
+    TRAIN_STEPS steps from one seed drift apart: the floor of run-to-run
+    spread (the backward's atomics) below which no chained comparison can
+    hold, and the reason each replay is held against an eager step from its
+    own state."""
+    states = [trainer.init_state(seed=0) for _ in range(2)]
+    with kernels.eager():
+        chains = [[trainer.train_step(st, batch) for _ in range(TRAIN_STEPS)] for st in states]
+    d_gnorm = [abs(a[3].item() - b[3].item()) / b[3].item() for a, b in zip(*chains)]
+    d_loss = max(abs(a[1].item() - b[1].item()) / abs(b[1].item()) for a, b in zip(*chains))
+    scale = max(states[1].params[k].abs().max().item() for k in trainer._trained)
+    d_param = max((states[0].params[k] - states[1].params[k]).abs().max().item()
+                  for k in trainer._trained) / scale
+    log("train", f"eager vs eager, two chains of {TRAIN_STEPS} steps from one seed (no limit): "
+        f"loss rel {d_loss:.3e}, grad_norm rel per step {[f'{d:.3e}' for d in d_gnorm]}, "
+        f"parameters after step {TRAIN_STEPS} max|d| / max|p| {d_param:.3e}")
 
 
 def run_train(device, cfg: Config) -> tuple[dict, dict]:
@@ -684,43 +785,11 @@ def run_train(device, cfg: Config) -> tuple[dict, dict]:
     trainer = Trainer(cfg, device)
     batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
                             device=device)
-    state, p0, p1, steps, counts = captured_steps(trainer, batch, "train")
+    state, p0, steps, snaps, counts = captured_steps(trainer, batch, "train")
     losses = [s[1].item() for s in steps]
     gnorms = [s[3].item() for s in steps]
 
-    # The same 3 steps eagerly on the kernels, from the same seed (same
-    # parameters and dropout masks), twice: the graph replays launch the same
-    # kernels on the same data. The parameters are held after the first
-    # step: later steps differ as far as the atomics of the upsample's and
-    # grid_sample's backward move the first update, as two eager runs do.
-    eager_states = [trainer.init_state(seed=0) for _ in range(2)]
-    eager, eager_p1 = [], []
-    with kernels.eager():
-        for st in eager_states:
-            eager.append([trainer.train_step(st, batch)])
-            eager_p1.append({k: v.detach().clone() for k, v in st.params.items()})
-            eager[-1] += [trainer.train_step(st, batch) for _ in range(TRAIN_STEPS - 1)]
-    d_loss_e = max(abs(a - e[1].item()) / abs(e[1].item()) for a, e in zip(losses, eager[0]))
-    d_gnorm_e = max(abs(a - e[3].item()) / e[3].item() for a, e in zip(gnorms, eager[0]))
-    scale = max(v.abs().max().item() for k, v in eager_p1[0].items() if k in trainer._trained)
-
-    def param_diff(a: dict, b: dict) -> tuple[float, str]:
-        """Largest |Δp| over the trained tensors, over the largest |p| of all
-        of them, and the tensor it is in."""
-        d = {k: (a[k] - b[k]).abs().max().item() for k in trainer._trained}
-        worst = max(d, key=d.get)
-        return d[worst] / scale, f"{worst} (max |p| there {b[worst].abs().max().item():.3e})"
-
-    d_param_e, where = param_diff(p1, eager_p1[0])
-    d_param_3, where_3 = param_diff(state.params, eager_states[0].params)
-    d_param_ee, where_ee = param_diff(eager_states[1].params, eager_states[0].params)
-    log("train", f"graph vs eager kernel path: loss rel {d_loss_e:.3e}, grad_norm rel "
-        f"{d_gnorm_e:.3e} over {TRAIN_STEPS} steps; parameters max|d| / max|p| {d_param_e:.3e} "
-        f"after step 1 in {where}, {d_param_3:.3e} after step {TRAIN_STEPS} in {where_3} "
-        f"(eager vs eager: {d_param_ee:.3e} in {where_ee})")
-    if d_loss_e > 1e-6 or d_gnorm_e > 1e-6 or d_param_e > 1e-5:
-        raise AssertionError("graph and eager train steps differ beyond loss / grad_norm 1e-6 "
-                             "relative, parameters 1e-5 of max |p|")
+    d_loss_e, d_gnorm_e, d_param_e = check_replays(trainer, batch, steps, snaps)
 
     # The first step again on the plain path, from the same seed.
     with kernels.plain_versions():
@@ -828,7 +897,7 @@ def main() -> int:
 
     # launches: the sum over the counted main-path runs of ROW_PHASES.
     # Errors: max |kernel − plain| over every stage, at B = 4 for the
-    # forward and at B = 4 and 16 for dx and dk (bfloat16: B = 4). conv3x3
+    # forward and at B = 4 and 16 for dx and dk (both types). conv3x3
     # (forward and dx): one train step's forward + dx at B = 16 (the eval
     # step's forward at B = 32 is logged above); conv3x3_dk: one train
     # step's dk at B = 16. The float32 plain versions are cuDNN's calls

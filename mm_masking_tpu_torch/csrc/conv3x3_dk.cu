@@ -1,8 +1,11 @@
-// Weight gradient of the 3x3 SAME stride-1 convolution, NCHW, f32 result.
+// Weight gradient of the 3x3 SAME stride-1 convolution, NCHW, float32 inputs
+// and result, on the CUDA cores.
 //
 // Replaces: mm_masking_tpu/ops/pallas/conv2d.py::_dk_nhcw_raw (kernel body
-// _dk_kernel), the Pallas TPU kernel in the conv's custom VJP that
-// accumulates dk(9Ci, Co) = sum over the batch and rows of X9 . dy^T.
+// _dk_kernel, pallas_call at :184), the Pallas TPU kernel in the conv's
+// custom VJP that accumulates dk(9Ci, Co) = sum over the batch and rows of
+// X9 . dy^T, for float32 inputs. bfloat16 inputs run the tensor-core GEMM of
+// conv3x3_dk_tc.cu.
 //
 //   dk[co][ci][kh][kw] = sum_{b,h,w} dy[b][co][h][w] * x[b][ci][h+kh-1][w+kw-1]
 //
@@ -14,8 +17,8 @@
 //     channels x CO_T = COG * 8 output channels x 9 taps and a chunk of
 //     consecutive spatial tiles (b, 8 rows, 32 columns). It writes the tile's
 //     f32 partial sums for that chunk into scratch (n_chunks, Co, Ci, 9);
-//   pass two (conv3x3_dk_sum): one thread per output element sums the chunks
-//     in chunk order.
+//   pass two (conv3x3_dk_sum, dk_chunk_sum.cuh, shared with conv3x3_dk_tc.cu):
+//     one thread per output element sums the chunks in chunk order.
 //
 // Every sum runs in a fixed order, so two runs give the same bits.
 //
@@ -32,9 +35,11 @@
 // 700 W).
 // The channel tile and the number of pixel lanes per output adapt to Ci and
 // Co (templates below), and the host sizes the chunks so that each shape
-// launches about 8 blocks per SM. Tensor cores and TMA are later work.
-#include <cuda_bf16.h>
+// launches about 8 blocks per SM. The tensor cores (conv3x3_dk_tc.cu's GEMM
+// in 3xTF32) and TMA are later work.
 #include <cuda_runtime.h>
+
+#include "dk_chunk_sum.cuh"
 
 namespace {
 
@@ -43,11 +48,6 @@ constexpr int TW = 32;        // spatial tile: columns
 constexpr int THREADS = 256;
 constexpr int CO_R = 8;       // output channels per thread
 constexpr int TARGET_BLOCKS = 132 * 8;
-
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 struct Tiling {
   int ci_t, cog, n_ci_t, n_co_t, n_tiles;
@@ -73,9 +73,9 @@ int chunk_count(const Tiling& t) {
 
 // x (B, Ci, H, W), dy (B, Co, H, W) -> partial (n_chunks, Co, Ci, 9) f32.
 // grid = (n_ci_t * n_co_t, n_chunks).
-template <typename T, int CI_T, int COG>
+template <int CI_T, int COG>
 __global__ void __launch_bounds__(THREADS)
-conv3x3_dk_partial(const T* __restrict__ x, const T* __restrict__ dy,
+conv3x3_dk_partial(const float* __restrict__ x, const float* __restrict__ dy,
                    float* __restrict__ partial, int B, int Ci, int Co, int H, int W,
                    int n_ci_t, int tiles_per_chunk) {
   constexpr int CO_T = COG * CO_R;
@@ -127,8 +127,8 @@ conv3x3_dk_partial(const T* __restrict__ x, const T* __restrict__ dy,
       const int gw = w0 + cc - 1;
       float v = 0.f;
       if (ci0 + c < Ci && gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = load_f(x + (static_cast<size_t>(b) * Ci + ci0 + c) * plane +
-                   static_cast<size_t>(gh) * W + gw);
+        v = x[(static_cast<size_t>(b) * Ci + ci0 + c) * plane +
+              static_cast<size_t>(gh) * W + gw];
       xs[c][rr][cc] = v;
     }
     for (int i = threadIdx.x; i < CO_T * TH * TW; i += THREADS) {
@@ -139,8 +139,8 @@ conv3x3_dk_partial(const T* __restrict__ x, const T* __restrict__ dy,
       const int gw = w0 + cc;
       float v = 0.f;  // pixels past the image edge contribute nothing
       if (co0 + c < Co && gh < H && gw < W)
-        v = load_f(dy + (static_cast<size_t>(b) * Co + co0 + c) * plane +
-                   static_cast<size_t>(gh) * W + gw);
+        v = dy[(static_cast<size_t>(b) * Co + co0 + c) * plane +
+               static_cast<size_t>(gh) * W + gw];
       dys[c * DPLANE + rr * DW + cc] = v;
     }
     __syncthreads();
@@ -223,47 +223,34 @@ conv3x3_dk_partial(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// dk[i] = sum over chunks of partial[chunk][i], in chunk order.
-__global__ void conv3x3_dk_sum(const float* __restrict__ partial, float* __restrict__ dk,
-                               int n, int n_chunks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[static_cast<size_t>(c) * n + i];
-  dk[i] = s;
-}
-
-template <typename T, int CI_T, int COG>
-void launch_partial(const T* x, const T* dy, float* partial, int B, int Ci, int Co, int H,
-                    int W, const Tiling& t, int n_chunks, cudaStream_t stream) {
+template <int CI_T, int COG>
+void launch_partial(const float* x, const float* dy, float* partial, int B, int Ci, int Co,
+                    int H, int W, const Tiling& t, int n_chunks, cudaStream_t stream) {
   const int per_chunk = (t.n_tiles + n_chunks - 1) / n_chunks;
   const dim3 grid(t.n_ci_t * t.n_co_t, n_chunks);
-  conv3x3_dk_partial<T, CI_T, COG><<<grid, THREADS, 0, stream>>>(
+  conv3x3_dk_partial<CI_T, COG><<<grid, THREADS, 0, stream>>>(
       x, dy, partial, B, Ci, Co, H, W, t.n_ci_t, per_chunk);
 }
 
-template <typename T>
-int launch(const T* x, const T* dy, float* partial, float* dk, int B, int Ci, int Co,
+int launch(const float* x, const float* dy, float* partial, float* dk, int B, int Ci, int Co,
            int H, int W, int n_chunks, cudaStream_t stream) {
   const Tiling t = tiling(B, Ci, Co, H, W);
   if (n_chunks != chunk_count(t)) return static_cast<int>(cudaErrorInvalidValue);
 #define MM_DK_CASE(CI_T, COG)                                                         \
   if (t.ci_t == CI_T && t.cog == COG)                                                 \
-    launch_partial<T, CI_T, COG>(x, dy, partial, B, Ci, Co, H, W, t, n_chunks, stream);
+    launch_partial<CI_T, COG>(x, dy, partial, B, Ci, Co, H, W, t, n_chunks, stream);
   MM_DK_CASE(1, 1) MM_DK_CASE(1, 2) MM_DK_CASE(4, 1) MM_DK_CASE(4, 2)
   MM_DK_CASE(8, 1) MM_DK_CASE(8, 2)
 #undef MM_DK_CASE
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = Co * Ci * 9;
-  conv3x3_dk_sum<<<(n + 255) / 256, 256, 0, stream>>>(partial, dk, n, n_chunks);
-  return static_cast<int>(cudaGetLastError());
+  return mm::sum_chunks(partial, dk, Co * Ci * 9, n_chunks, stream);
 }
 
 }  // namespace
 
 // Number of chunks (the first dimension of the partial-sum scratch) that
-// mm_conv3x3_dk_* uses for this shape.
+// mm_conv3x3_dk_f32 uses for this shape.
 extern "C" int mm_conv3x3_dk_chunks(int B, int Ci, int Co, int H, int W) {
   return chunk_count(tiling(B, Ci, Co, H, W));
 }
@@ -273,15 +260,6 @@ extern "C" int mm_conv3x3_dk_f32(const void* x, const void* dy, void* partial, v
                                  int B, int Ci, int Co, int H, int W, int n_chunks,
                                  void* stream) {
   return launch(static_cast<const float*>(x), static_cast<const float*>(dy),
-                static_cast<float*>(partial), static_cast<float*>(dk), B, Ci, Co, H, W,
-                n_chunks, static_cast<cudaStream_t>(stream));
-}
-
-// x, dy bf16; f32 accumulation, scratch and result.
-extern "C" int mm_conv3x3_dk_bf16(const void* x, const void* dy, void* partial, void* dk,
-                                  int B, int Ci, int Co, int H, int W, int n_chunks,
-                                  void* stream) {
-  return launch(static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
                 static_cast<float*>(partial), static_cast<float*>(dk), B, Ci, Co, H, W,
                 n_chunks, static_cast<cudaStream_t>(stream));
 }

@@ -37,7 +37,8 @@ _SIGNATURES = {
     # bf16: conv3x3.cu)
     "mm_conv3x3_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, dy, partial, dk, B, Ci, Co, H, W, n_chunks, stream
+    # x, dy, partial, dk, B, Ci, Co, H, W, n_chunks, stream (f32:
+    # conv3x3_dk.cu, bf16: conv3x3_dk_tc.cu)
     "mm_conv3x3_dk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_dk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # p, q4, start_blk, nblk, B, N, M, rows, tm, idx, d2, stream
@@ -55,8 +56,11 @@ _SIGNATURES = {
 # Host-side functions of the sources: name → (argument types, result type).
 _HOST = {
     "mm_error_string": ([_I], ctypes.c_char_p),
-    # B, Ci, Co, H, W → K3's spatial chunks
+    # B, Ci, Co, H, W → K3's spatial chunks (f32, bf16)
     "mm_conv3x3_dk_chunks": ([_I] * 5, _I),
+    "mm_conv3x3_dk_bf16_chunks": ([_I] * 5, _I),
+    # Ci, Co → shared bytes of one block of K3's bf16 kernel
+    "mm_conv3x3_dk_bf16_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Co, W → shared bytes of one block of the f32 conv (K2)
     "mm_conv3x3_f32_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Shared bytes of one probe block: (variant, Ci, Co, TH, Wt, elem),

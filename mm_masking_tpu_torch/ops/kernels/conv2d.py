@@ -1,7 +1,8 @@
 """3×3 SAME stride-1 conv (+bias, optional fused ReLU) with its backward: the
 CUDA kernels of K2 (forward, and dx of the backward: ``csrc/conv3x3_tc.cu``
 on the tensor cores through 3xTF32 for float32, ``csrc/conv3x3.cu`` for
-bfloat16) and K3 ``csrc/conv3x3_dk.cu`` (weight gradient), and their plain
+bfloat16) and K3 (weight gradient: ``csrc/conv3x3_dk.cu`` for float32,
+``csrc/conv3x3_dk_tc.cu`` on the tensor cores for bfloat16), and their plain
 PyTorch versions.
 
 Counterpart of ``mm_masking_tpu.ops.pallas.conv2d.conv3x3_nhcw`` and its
@@ -25,7 +26,9 @@ import torch.nn.functional as F
 from mm_masking_tpu_torch.ops.kernels._build import SMEM_LIMIT, launch, library, use_kernel
 
 _ENTRY = {torch.float32: "mm_conv3x3_f32", torch.bfloat16: "mm_conv3x3_bf16"}
-_DK_ENTRY = {torch.float32: "mm_conv3x3_dk_f32", torch.bfloat16: "mm_conv3x3_dk_bf16"}
+# K3's entry and the host function that sizes its scratch, by input type.
+_DK_ENTRY = {torch.float32: ("mm_conv3x3_dk_f32", "mm_conv3x3_dk_chunks"),
+             torch.bfloat16: ("mm_conv3x3_dk_bf16", "mm_conv3x3_dk_bf16_chunks")}
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -112,10 +115,11 @@ def conv3x3_dk(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if dy.shape != (B, Co, H, W):
         raise ValueError(f"dy {tuple(dy.shape)} does not fit x {tuple(x.shape)}")
     x, dy = x.contiguous(), dy.contiguous()
-    n_chunks = library().mm_conv3x3_dk_chunks(B, Ci, Co, H, W)
+    entry, chunks = _DK_ENTRY[x.dtype]
+    n_chunks = getattr(library(), chunks)(B, Ci, Co, H, W)
     partial = torch.empty((n_chunks, Co, Ci, 9), dtype=torch.float32, device=x.device)
     dk = torch.empty((Co, Ci, 3, 3), dtype=torch.float32, device=x.device)
-    launch(_DK_ENTRY[x.dtype], x.device, x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+    launch(entry, x.device, x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
            dk.data_ptr(), B, Ci, Co, H, W, n_chunks)
     conv3x3_dk.launches += 1
     return dk

@@ -228,12 +228,36 @@ def test_conv3x3_f32_refuses_before_launching(cuda, monkeypatch):
     assert not any(launch_counts().values())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Ci,Co,H,W", [(1, 8, 320, 320), (256, 256, 40, 40)])
-def test_conv3x3_dk_is_bitwise_reproducible(cuda, Ci, Co, H, W):
+def test_conv3x3_dk_is_bitwise_reproducible(cuda, Ci, Co, H, W, dtype):
     g = torch.Generator(device=cuda).manual_seed(16)
-    x = torch.randn(4, Ci, H, W, device=cuda, generator=g)
-    dy = torch.randn(4, Co, H, W, device=cuda, generator=g)
+    x = torch.randn(4, Ci, H, W, device=cuda, generator=g).to(dtype)
+    dy = torch.randn(4, Co, H, W, device=cuda, generator=g).to(dtype)
     assert torch.equal(conv3x3_dk(x, dy), conv3x3_dk(x, dy))
+
+
+# The longest sum (6.5 M pixels a weight at 1 -> 8, 640^2, B = 16) and the
+# widest stage (256 -> 256 at 40^2) of a bf16 train step.
+@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 640), (256, 256, 40)])
+def test_conv3x3_dk_bf16_matches_float64(cuda, Ci, Co, H):
+    """K3's bf16 GEMM sums exact products in float32, a fresh tensor-core
+    accumulator per spatial tile: within 1e-5 of max |dk| of a float64 sum
+    of the same (widened) inputs."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(16, Ci, H, H, device=cuda, generator=g).bfloat16()
+    dy = torch.randn(16, Co, H, H, device=cuda, generator=g).bfloat16()
+    dk = conv3x3_dk(x, dy)
+    dk64 = torch.nn.grad.conv2d_weight(x.double(), dk.shape, dy.double(), padding=1)
+    assert rel_err(dk, dk64) <= 1e-5
+
+
+def test_conv3x3_dk_bf16_blocks_fit_the_shared_memory(cuda):
+    """The bf16 dk block at each UNet stage shape fits the 227 KB a block may
+    have."""
+    smem = library().mm_conv3x3_dk_bf16_smem_bytes
+    sizes = {smem(ci, co) for ci, co, _ in conv3x3_shapes()}
+    assert all(0 < s <= SMEM_LIMIT for s in sizes), sizes
 
 
 def test_conv3x3_output_carries_its_backward(cuda):

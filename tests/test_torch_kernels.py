@@ -133,6 +133,103 @@ def test_conv3x3_dk_matches_pallas(Ci, dtype):
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2 * np.abs(want).max())
 
 
+def dk_tile_order(x: torch.Tensor, dy: torch.Tensor, th: int, tw: int,
+                  tiles_per_chunk: int) -> torch.Tensor:
+    """dk (Co, Ci, 3, 3) summed in the order of K3's bfloat16 kernel
+    (csrc/conv3x3_dk_tc.cu), from float32 x and dy that hold bf16 values:
+    each spatial tile of th × tw pixels (zero past the image) summed alone in
+    float32, where each product is exact; the tiles of a chunk (consecutive
+    tiles in (b, tile row, tile column) order) added in float32 in order;
+    then the chunks added in chunk order."""
+    B, Ci, H, W = x.shape
+    Co = dy.shape[1]
+    nth, ntw = -(-H // th), -(-W // tw)
+    Hp, Wp = nth * th, ntw * tw
+    xp = F.pad(x, (1, 1 + Wp - W, 1, 1 + Hp - H))
+    d = F.pad(dy, (0, Wp - W, 0, Hp - H)).reshape(B, Co, nth, th, ntw, tw)
+    taps = [torch.einsum("bihpwq,bohpwq->bhwoi",
+                         xp[:, :, kh:kh + Hp, kw:kw + Wp].reshape(B, Ci, nth, th, ntw, tw), d)
+            for kh in range(3) for kw in range(3)]
+    tiles = torch.stack(taps, -1).reshape(B * nth * ntw, Co, Ci, 9)
+    n_chunks = -(-len(tiles) // tiles_per_chunk)
+    tiles = F.pad(tiles, (0, 0, 0, 0, 0, 0, 0, n_chunks * tiles_per_chunk - len(tiles)))
+    tiles = tiles.reshape(n_chunks, tiles_per_chunk, Co, Ci, 9)
+    partial = torch.zeros_like(tiles[:, 0])
+    for j in range(tiles_per_chunk):
+        partial = partial + tiles[:, j]
+    dk = torch.zeros_like(partial[0])
+    for c in range(n_chunks):
+        dk = dk + partial[c]
+    return dk.reshape(Co, Ci, 3, 3)
+
+
+# The kernel's tiles: 16 x 40 pixels below 16 input channels, 8 x 40 from 16
+# on; a few tiles a chunk, so that both the runs within a chunk and the sum
+# over chunks are taken.
+@pytest.mark.parametrize("Ci,Co,H,W,th,per_chunk", [(1, 8, 48, 80, 16, 4), (64, 64, 16, 40, 8, 2)])
+def test_dk_bf16_tile_sums_keep_float32_accuracy(Ci, Co, H, W, th, per_chunk):
+    """K3's bf16 order of summation, emulated: within 1e-5 of max |dk| of a
+    float64 sum of the same bf16 inputs, and equal to the Pallas dk kernel
+    (interpret mode, bf16) within the bf16 limit of the test above. This
+    checks the order of summation, not the kernel: no code of the port runs
+    here. The kernel's own accuracy is held on the card by
+    test_conv3x3_dk_bf16_matches_float64 and by chip_smoke.py."""
+    B = 2
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((B, Ci, H, W)) * 0.1).astype(np.float32)
+    dy = (rng.standard_normal((B, Co, H, W)) * 0.1).astype(np.float32)
+    xb = torch.from_numpy(x).bfloat16().float()
+    dyb = torch.from_numpy(dy).bfloat16().float()
+    got = dk_tile_order(xb, dyb, th, 40, per_chunk)
+    want64 = torch.nn.grad.conv2d_weight(xb.double(), got.shape, dyb.double(), padding=1)
+    scale = want64.abs().max().item()
+    assert (got.double() - want64).abs().max().item() <= 1e-5 * scale
+
+    Cip, Cop, Wp = max(16, -(-Ci // 16) * 16), max(16, -(-Co // 16) * 16), -(-W // 128) * 128
+    xj = _pad_cw(jnp.asarray(x).transpose(0, 2, 1, 3).astype(jnp.bfloat16), Cip, Wp)
+    dyj = _pad_cw(jnp.asarray(dy).transpose(0, 2, 1, 3).astype(jnp.bfloat16), Cop, Wp)
+    want = np.asarray(_dk_nhcw_raw(xj, dyj, _pick_th(H))).reshape(3, 3, Cip, Cop)[:, :, :Ci, :Co]
+    np.testing.assert_allclose(got.permute(2, 3, 1, 0).numpy(), want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype,entry,sizing", [
+    (torch.float32, "mm_conv3x3_dk_f32", "mm_conv3x3_dk_chunks"),
+    (torch.bfloat16, "mm_conv3x3_dk_bf16", "mm_conv3x3_dk_bf16_chunks"),
+])
+def test_conv3x3_dk_routes_each_precision_to_its_entry(monkeypatch, dtype, entry, sizing):
+    """On the card, K3 takes float32 to conv3x3_dk.cu and bfloat16 to
+    conv3x3_dk_tc.cu, each with the scratch its own host function sizes."""
+    from mm_masking_tpu_torch.ops.kernels import conv2d
+
+    calls = []
+    chunks = {"mm_conv3x3_dk_chunks": 3, "mm_conv3x3_dk_bf16_chunks": 5}
+
+    def record(name, result):
+        return staticmethod(lambda *args: calls.append((name, args)) or result)
+
+    Library = type("Library", (), {
+        **{name: record(name, n) for name, n in chunks.items()},
+        **{name: record(name, 0) for name in ("mm_conv3x3_dk_f32", "mm_conv3x3_dk_bf16")},
+    })
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(conv2d, "library", Library)
+    monkeypatch.setattr(conv2d, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    x = torch.zeros((2, 3, 5, 6), dtype=dtype)
+    dy = torch.zeros((2, 4, 5, 6), dtype=dtype)
+    reset_launch_counts()
+    dk = conv2d.conv3x3_dk(x, dy)
+    assert dk.dtype == torch.float32 and dk.shape == (4, 3, 3, 3)
+    assert launch_counts()["conv3x3_dk"] == 1
+    reset_launch_counts()
+    (sized, size_args), (launched, args) = calls
+    assert sized == sizing and size_args == (2, 3, 4, 5, 6)
+    assert launched == entry and args[4:] == (2, 3, 4, 5, 6, chunks[sizing], 7)
+
+
 @pytest.mark.parametrize("relu", [False, True])
 def test_conv3x3_gradients_match_pallas_vjp(relu):
     """jax.grad through conv3x3_nhcw's custom VJP (Pallas dx and dk in
