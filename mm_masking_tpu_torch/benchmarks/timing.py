@@ -29,6 +29,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 5) -> float:
+    """Median device time of fn() in ms, replayed from a CUDA graph: the time
+    the card spends on the kernels fn launches, as a captured step runs
+    them, without the host's time to launch them (which ``cuda_ms`` counts
+    where the card waits for it). fn runs once on a side stream first, then
+    once under capture."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("graph_ms times on a CUDA device, and none is available")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def in_turns(plain, kernel, timer) -> tuple[float, float]:
     """(kernel, plain) times measured plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = timer(plain), timer(kernel), timer(kernel), timer(plain)

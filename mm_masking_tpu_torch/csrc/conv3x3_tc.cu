@@ -4,7 +4,7 @@
 // Replaces: mm_masking_tpu/ops/pallas/conv2d.py::_conv_nhcw_raw (kernel body
 // _fwd_kernel, pallas_call at :152) for float32 inputs, in both of the conv's
 // uses: the forward and, on the rotated and transposed weight, the
-// backward's dx. bfloat16 inputs stay on the direct kernel of conv3x3.cu.
+// backward's dx. bfloat16 inputs run conv3x3_bf16_tc.cu.
 //
 // What bounds it on this card: from 16 channels on, a stage does 18*Ci*Co
 // operations per pixel for 4*(Ci + Co) bytes, far above the H100's ratio of

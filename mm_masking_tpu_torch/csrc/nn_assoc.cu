@@ -103,3 +103,9 @@ extern "C" int mm_nn_argmin(const void* p, const void* q, const void* start_blk,
       static_cast<int*>(idx), static_cast<float*>(d2));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The text of a CUDA error code that an entry of the library returned
+// (ops/kernels/_build.py::launch raises with it).
+extern "C" const char* mm_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}

@@ -34,7 +34,7 @@ SMEM_LIMIT = 232_448  # shared bytes a block may opt into on the H100
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, bias, y, B, Ci, Co, H, W, relu, stream (f32: conv3x3_tc.cu,
-    # bf16: conv3x3.cu)
+    # bf16: conv3x3_bf16_tc.cu)
     "mm_conv3x3_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, partial, dk, B, Ci, Co, H, W, n_chunks, stream (f32:
@@ -63,6 +63,8 @@ _HOST = {
     "mm_conv3x3_dk_bf16_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Co, W → shared bytes of one block of the f32 conv (K2)
     "mm_conv3x3_f32_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+    # Ci, Co → shared bytes of one block of the bf16 conv (K2)
+    "mm_conv3x3_bf16_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Shared bytes of one probe block: (variant, Ci, Co, TH, Wt, elem),
     # (Ci, Co, TH, Wt, elem) and (Ci, Co, W, Lc, elem).
     "mm_probe_nhcw_smem_bytes": ([_I] * 6, ctypes.c_size_t),

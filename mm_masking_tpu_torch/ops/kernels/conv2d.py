@@ -1,14 +1,16 @@
 """3×3 SAME stride-1 conv (+bias, optional fused ReLU) with its backward: the
-CUDA kernels of K2 (forward, and dx of the backward: ``csrc/conv3x3_tc.cu``
-on the tensor cores through 3xTF32 for float32, ``csrc/conv3x3.cu`` for
-bfloat16) and K3 (weight gradient: ``csrc/conv3x3_dk.cu`` for float32,
+CUDA kernels of K2 (forward, and dx of the backward, on the tensor cores:
+``csrc/conv3x3_tc.cu`` through 3xTF32 for float32, ``csrc/conv3x3_bf16_tc.cu``
+for bfloat16) and K3 (weight gradient: ``csrc/conv3x3_dk.cu`` for float32,
 ``csrc/conv3x3_dk_tc.cu`` on the tensor cores for bfloat16), and their plain
 PyTorch versions.
 
 Counterpart of ``mm_masking_tpu.ops.pallas.conv2d.conv3x3_nhcw`` and its
 custom VJP. The port keeps PyTorch's NCHW layout and OIHW weights; the JAX
 package's NHCW layout existed only to fill the TPU's 128 lanes. Inputs are
-float32 or bfloat16; accumulation is float32 and each result has its
+float32 or bfloat16; the forward and dx round the weight to their input's
+type, as the reference rounds ``kmat`` (``conv2d.py:236``, ``:263``), and
+keep the bias in float32; accumulation is float32 and each result has its
 operand's type.
 
 :func:`conv3x3` is a ``torch.autograd.Function`` on every device. Only its
@@ -33,8 +35,9 @@ _DK_ENTRY = {torch.float32: ("mm_conv3x3_dk_f32", "mm_conv3x3_dk_chunks"),
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   relu: bool = False) -> torch.Tensor:
-    """Plain version: ``F.conv2d`` in float32 (TF32 off), rounded to x's type."""
-    y = F.conv2d(x.float(), weight.float(), bias.float(), padding=1)
+    """Plain version: ``F.conv2d`` in float32 (TF32 off) of x and the weight
+    rounded to x's type, rounded to x's type."""
+    y = F.conv2d(x.float(), weight.to(x.dtype).float(), bias.float(), padding=1)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype)
@@ -46,8 +49,10 @@ def _rot180_t(weight: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_dx_plain(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Plain dx: ``F.conv2d`` of dy with the rotated, transposed weight."""
-    return F.conv2d(dy.float(), _rot180_t(weight.float()), padding=1).to(dy.dtype)
+    """Plain dx: ``F.conv2d`` of dy with the rotated, transposed weight,
+    rounded to dy's type."""
+    w = _rot180_t(weight.to(dy.dtype).float())
+    return F.conv2d(dy.float(), w, padding=1).to(dy.dtype)
 
 
 def conv3x3_dk_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -56,23 +61,45 @@ def conv3x3_dk_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return torch.nn.grad.conv2d_weight(x.float(), shape, dy.float(), padding=1)
 
 
+def ci_tile(ci: int) -> int:
+    """Input channels of one chunk of the bfloat16 kernel's K: 1 for Ci = 1
+    (the 9 taps in one k-step), 8 up to 8 (two taps a k-step), else 16 (one
+    tap a k-step). ``csrc/conv3x3_bf16_tc.cu::with_cfg`` picks the same."""
+    return 1 if ci == 1 else 8 if ci <= 8 else 16
+
+
+def pack_weight_bf16(weight: torch.Tensor) -> torch.Tensor:
+    """(Co, Ci, 3, 3) → bfloat16 (n_chunks, 9, Cop, t), the bfloat16 kernel's
+    weights: t = ci_tile(Ci), n_chunks = ⌈Ci / t⌉, Cop = Co rounded up to 8;
+    element [c, 3·kh + kw, co, k] is weight[co, c·t + k, kh, kw], zero past Ci
+    and Co. One chunk's taps are contiguous, and each (tap, co) row of t
+    input channels loads as 16-byte vectors."""
+    Co, Ci = weight.shape[:2]
+    t = ci_tile(Ci)
+    cip = -(-Ci // t) * t
+    w = weight.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, Co, Ci)
+    w = F.pad(w, (0, cip - Ci, 0, -Co % 8))
+    return w.reshape(9, w.shape[1], cip // t, t).permute(2, 0, 1, 3).contiguous()
+
+
 def _launch_forward(x, weight, bias, relu):
     if x.dtype not in _ENTRY:
         raise TypeError(f"conv3x3 kernel takes float32 or bfloat16, got {x.dtype}")
     B, Ci, H, W = x.shape
     Co = weight.shape[0]
     if x.dtype == torch.float32:
-        smem = library().mm_conv3x3_f32_smem_bytes(Co, W)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"conv3x3 f32 kernel: a block for Co={Co}, W={W} needs {smem} "
-                             f"bytes of shared memory, more than the {SMEM_LIMIT} it may have")
+        smem, block = library().mm_conv3x3_f32_smem_bytes(Co, W), f"Co={Co}, W={W}"
         # (Co, Ci, kh, kw) → (9, Ci, Co), both channel counts zero-padded to
         # a multiple of 8: one chunk's weights load as 16-byte vectors.
         w9 = F.pad(weight.float().permute(2, 3, 1, 0).reshape(9, Ci, Co),
                    (0, -Co % 8, 0, -Ci % 8))
     else:
-        # (Co, Ci, kh, kw) → (Ci, 9, Co): one tap's output channels are contiguous.
-        w9 = weight.float().permute(1, 2, 3, 0).reshape(Ci, 9, Co)
+        smem, block = library().mm_conv3x3_bf16_smem_bytes(Ci, Co), f"Ci={Ci}, Co={Co}"
+        w9 = pack_weight_bf16(weight)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"conv3x3 {str(x.dtype)[6:]} kernel: a block for {block} needs "
+                         f"{smem} bytes of shared memory, more than the {SMEM_LIMIT} it may "
+                         f"have")
     x, w9 = x.contiguous(), w9.contiguous()  # x: a no-op inside the autograd Function
     b = bias.float().contiguous()
     y = torch.empty((B, Co, H, W), dtype=x.dtype, device=x.device)

@@ -50,7 +50,7 @@ from mm_masking_tpu_torch.train.trainer import Trainer
 # Kernel-name fragment → group, first match wins.
 GROUPS = (
     ("conv3x3_tf32x3", "conv3x3 (K2 forward + dx)"),
-    ("conv3x3_kernel", "conv3x3 (K2 forward + dx)"),
+    ("conv3x3_mma_bf16", "conv3x3 (K2 forward + dx)"),
     ("conv3x3_dk", "conv3x3_dk (K3)"),
     ("nn_argmin_kernel", "nn_argmin (K4 / K1)"),
     ("indexfunc", "index_add / index_select"),

@@ -55,7 +55,9 @@ def cuda():
 # W = H + 7. The float32 kernel's tile edges: Ci of 3 and 12 (chunks of 8
 # padded in shared memory), Co of 1, 12 and 72 (past one 64-channel block),
 # widths that are no multiple of 16 (W = 37) and multiples of 32 (W = 32, 64:
-# the 32-column tile).
+# the 32-column tile). The bfloat16 kernel's: Ci of 3 (a chunk of 8), 12 and
+# 72 (chunks of 16), Co past its channel block, widths that are no multiple
+# of 8 (16-bit loads and stores) or of its 40-column tile.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Ci,Co,H", [(1, 8, 96), (16, 32, 50), (64, 64, 40), (256, 128, 20),
                                      (3, 12, 30), (12, 1, 25), (12, 72, 30), (72, 12, 57)])
@@ -218,7 +220,7 @@ def test_conv3x3_f32_blocks_fit_the_shared_memory(cuda):
 
 def test_conv3x3_f32_refuses_before_launching(cuda, monkeypatch):
     """A float32 shape the kernel cannot take raises before any launch; it is
-    not handed to the direct kernel or to cuDNN."""
+    not handed to another kernel or to cuDNN."""
     x = torch.zeros((1, 8, 16, 16), device=cuda)
     w, b = torch.zeros((8, 8, 3, 3), device=cuda), torch.zeros(8, device=cuda)
     monkeypatch.setattr(tconv, "SMEM_LIMIT", 1024)
@@ -250,6 +252,41 @@ def test_conv3x3_dk_bf16_matches_float64(cuda, Ci, Co, H):
     dk = conv3x3_dk(x, dy)
     dk64 = torch.nn.grad.conv2d_weight(x.double(), dk.shape, dy.double(), padding=1)
     assert rel_err(dk, dk64) <= 1e-5
+
+
+# The bf16 path's three kinds of chunk at a train step's B = 16: Ci = 1 (the
+# 9 taps in one k-step) and 16 (one tap a k-step) at 640^2, bound by bytes,
+# and the widest stage, 256 -> 256 at 40^2; dx runs the same kernel on Co
+# input channels (8, 16 and 256).
+@pytest.mark.parametrize("use", ["forward", "dx"])
+@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 640), (16, 16, 640), (256, 256, 40)])
+def test_conv3x3_bf16_matches_float64(cuda, Ci, Co, H, use):
+    """K2's bf16 kernel sums exact products in float32, a fresh tensor-core
+    accumulator per chunk, and rounds once to bf16: each element within
+    2^-8 |y64| + 1e-5 max |y64| of a float64 conv of the same bf16 values.
+    A tap read from the wrong pixel or channel misses this by far."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    w = (torch.randn(Co, Ci, 3, 3, device=cuda, generator=g) * (2.0 / (9 * Ci)) ** 0.5).bfloat16()
+    if use == "forward":
+        x = torch.randn(16, Ci, H, H, device=cuda, generator=g).bfloat16()
+        b = torch.randn(Co, device=cuda, generator=g) * 0.1
+        got = tconv.conv3x3_forward(x, w, b)
+        want = torch.nn.functional.conv2d(x.double(), w.double(), b.double(), padding=1)
+    else:
+        dy = torch.randn(16, Co, H, H, device=cuda, generator=g).bfloat16()
+        got = conv3x3_dx(dy, w)
+        want = torch.nn.grad.conv2d_input((16, Ci, H, H), w.double(), dy.double(), padding=1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    limit = 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()
+    assert ((got.double() - want).abs() <= limit).all()
+
+
+def test_conv3x3_bf16_blocks_fit_the_shared_memory(cuda):
+    """The bf16 conv's block at each UNet stage shape, as the forward (Ci in,
+    Co out) and as dx (Co in, Ci out), fits the 227 KB a block may have."""
+    smem = library().mm_conv3x3_bf16_smem_bytes
+    sizes = {smem(a, c) for ci, co, _ in conv3x3_shapes() for a, c in ((ci, co), (co, ci))}
+    assert all(0 < s <= SMEM_LIMIT for s in sizes), sizes
 
 
 def test_conv3x3_dk_bf16_blocks_fit_the_shared_memory(cuda):

@@ -8,6 +8,7 @@ version on the card.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 from types import SimpleNamespace
 from unittest import mock
 
@@ -25,7 +26,13 @@ from mm_masking_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from mm_masking_tpu_torch.ops.kernels import _build
 from mm_masking_tpu_torch.ops.kernels._build import use_kernel
-from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3, conv3x3_dk_plain
+from mm_masking_tpu_torch.ops.kernels.conv2d import (
+    _rot180_t,
+    ci_tile,
+    conv3x3,
+    conv3x3_dk_plain,
+    pack_weight_bf16,
+)
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
 
 
@@ -60,6 +67,83 @@ def test_conv3x3_matches_pallas(Ci, Co, relu, dtype):
     else:
         np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
                                    atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("Ci,Co", [(1, 8), (8, 8), (16, 16)])
+def test_conv3x3_bf16_rounds_float32_weights_as_pallas(Ci, Co, relu):
+    """A bfloat16 x with float32 weights and bias: the reference rounds kmat
+    to x's type and keeps the bias in float32 (conv2d.py:236), and so does the
+    port. Held against conv3x3_nhcw (interpret mode) at the bf16 limits of
+    test_conv3x3_matches_pallas, and bit for bit against the port's own call
+    on weights rounded to bf16 beforehand."""
+    B, H, W = 2, 16, 40
+    x, k, b = conv_inputs(0, B, H, W, Ci, Co)
+    want = conv3x3_nhcw(jnp.asarray(x).transpose(0, 2, 1, 3).astype(jnp.bfloat16),
+                        jnp.asarray(k), jnp.asarray(b), relu)
+    want = np.asarray(want.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    xt = torch.from_numpy(x).bfloat16()
+    w32 = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
+    got = conv3x3(xt, w32, torch.from_numpy(b), relu)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, Co, H, W)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
+    assert torch.equal(got, conv3x3(xt, w32.bfloat16(), torch.from_numpy(b), relu))
+
+
+def bf16_k_order(x: torch.Tensor, packed: torch.Tensor, co: int) -> torch.Tensor:
+    """y (B, co, H, W) in float32, without bias, from x (bf16 values) and
+    weights packed by pack_weight_bf16, summed in the order of the bfloat16
+    conv kernel (csrc/conv3x3_bf16_tc.cu): chunk c holds input channels
+    c·t .. c·t + t − 1, t = ci_tile(Ci); each tap's t products (exact in
+    float32) are summed in float32 and the chunk's 9 taps into a fresh sum,
+    which is added to the running sum in float32, chunk by chunk. The weight
+    of (chunk c, tap 3·kh + kw, output channel o, channel k) is read where
+    the kernel reads it: packed[c, tap, o, k]."""
+    B, Ci, H, W = x.shape
+    n_chunks, _, _, t = packed.shape
+    xp = F.pad(x.float(), (1, 1, 1, 1, 0, n_chunks * t - Ci))
+    wf = packed.float()
+    acc = torch.zeros((B, wf.shape[2], H, W))
+    for c in range(n_chunks):
+        d = torch.zeros_like(acc)
+        for tap in range(9):
+            kh, kw = divmod(tap, 3)
+            d = d + torch.einsum("bkhw,ok->bohw", xp[:, c * t:(c + 1) * t, kh:kh + H, kw:kw + W],
+                                 wf[c, tap])
+        acc = acc + d
+    return acc[:, :co]
+
+
+@pytest.mark.parametrize("use", ["forward", "dx"])
+@pytest.mark.parametrize("cin", [1, 8, 12, 16])
+def test_bf16_weight_packing_and_k_order(cin, use):
+    """The bfloat16 kernel's weight packing and order of summation, emulated
+    in torch (bf16_k_order) on the packed weights: within 1e-5 of max |y| of
+    a float64 conv of the same bf16 values, before y is rounded. ``cin`` is
+    the kernel's input channel count: x's for the forward, dy's for dx, whose
+    weight is _rot180_t(weight), held against torch's conv2d_input (the
+    adjoint). This checks the packing and the order, not the kernel: no CUDA
+    code runs here. The kernel is held against a float64 conv on the card by
+    test_conv3x3_bf16_matches_float64 and by chip_smoke.py."""
+    B, H, W, other = 2, 12, 20, 12
+    rng = np.random.default_rng(31 + cin)
+    inp = torch.from_numpy(rng.standard_normal((B, cin, H, W)).astype(np.float32)).bfloat16()
+    if use == "forward":
+        w = torch.from_numpy(rng.standard_normal((other, cin, 3, 3)).astype(np.float32))
+        w = (w * 0.2).bfloat16()
+        packed, co = pack_weight_bf16(w), other
+        want = F.conv2d(inp.double(), w.double(), padding=1)
+    else:
+        w = torch.from_numpy(rng.standard_normal((cin, other, 3, 3)).astype(np.float32))
+        w = (w * 0.2).bfloat16()
+        packed, co = pack_weight_bf16(_rot180_t(w)), other
+        want = torch.nn.grad.conv2d_input((B, other, H, W), w.double(), inp.double(), padding=1)
+    t = ci_tile(cin)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.shape == (-(-cin // t), 9, -(-co // 8) * 8, t)
+    got = bf16_k_order(inp, packed, co)
+    assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 def tf32(a: np.ndarray) -> np.ndarray:
@@ -228,6 +312,68 @@ def test_conv3x3_dk_routes_each_precision_to_its_entry(monkeypatch, dtype, entry
     (sized, size_args), (launched, args) = calls
     assert sized == sizing and size_args == (2, 3, 4, 5, 6)
     assert launched == entry and args[4:] == (2, 3, 4, 5, 6, chunks[sizing], 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_routes_each_precision_to_its_entry(monkeypatch, dtype):
+    """On the card, K2 takes float32 to conv3x3_tc.cu (sized by Co, W) and
+    bfloat16 to conv3x3_bf16_tc.cu (sized by Ci, Co) with the weights of
+    pack_weight_bf16, for the forward and, on the rotated and transposed
+    weight, for dx; a shape whose block needs more shared memory than a block
+    may have raises before any launch."""
+    from mm_masking_tpu_torch.ops.kernels import conv2d
+
+    calls, packed_bytes = [], [0]
+    smem = {"mm_conv3x3_f32_smem_bytes": 5000, "mm_conv3x3_bf16_smem_bytes": 7000}
+
+    def record(name, result):
+        def fn(*args):
+            if name == "mm_conv3x3_bf16":  # the weights it is handed, read while they live
+                args = (args[0], ctypes.string_at(args[1], packed_bytes[0]), *args[2:])
+            calls.append((name, args))
+            return result
+        return staticmethod(fn)
+
+    Library = type("Library", (), {
+        **{name: record(name, n) for name, n in smem.items()},
+        **{name: record(name, 0) for name in ("mm_conv3x3_f32", "mm_conv3x3_bf16")},
+    })
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(conv2d, "library", Library)
+    monkeypatch.setattr(conv2d, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, 6)).astype(np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((2, 4, 5, 6)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.standard_normal((4, 3, 3, 3)).astype(np.float32))
+    b = torch.zeros(4)
+    bf = dtype == torch.bfloat16
+    entry, sizing = ("mm_conv3x3_bf16", "mm_conv3x3_bf16_smem_bytes") if bf else (
+        "mm_conv3x3_f32", "mm_conv3x3_f32_smem_bytes")
+    reset_launch_counts()
+    for fn, args, wk, shape in ((conv2d.conv3x3_forward, (x, w, b, True), w, (2, 3, 4, 5, 6, 1)),
+                                (conv2d.conv3x3_dx, (dy, w), _rot180_t(w), (2, 4, 3, 5, 6, 0))):
+        packed = pack_weight_bf16(wk).view(torch.int16).numpy().tobytes()
+        packed_bytes[0] = len(packed)
+        calls.clear()
+        out = fn(*args)
+        assert out.dtype == dtype and out.shape == (2, shape[2], 5, 6)
+        (sized, size_args), (launched, largs) = calls
+        assert sized == sizing and launched == entry
+        assert size_args == (shape[1:3] if bf else (shape[2], 6))
+        assert largs[4:] == (*shape, 7)
+        if bf:
+            assert largs[1] == packed
+    assert (launch_counts()["conv3x3"], launch_counts()["conv3x3_dx"]) == (1, 1)
+    monkeypatch.setattr(conv2d, "SMEM_LIMIT", smem[sizing] - 1)
+    calls.clear()
+    with pytest.raises(ValueError, match="shared memory"):
+        conv2d.conv3x3_forward(x, w, b)
+    assert [name for name, _ in calls] == [sizing]
+    assert launch_counts()["conv3x3"] == 1
+    reset_launch_counts()
 
 
 @pytest.mark.parametrize("relu", [False, True])
