@@ -10,8 +10,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 2. build   compiles ``mm_masking_tpu_torch/csrc/*.cu`` with nvcc (sm_90a),
            one process per source; prints ptxas's registers and spills and
            the count of HMMA (tensor-core) instructions in the SASS of each
-           instantiation of the float32 conv kernel and of the bfloat16 dk
-           kernel, and fails if one has none.
+           instantiation of the conv kernels and of the dk kernels (float32
+           and bfloat16 each), and fails if one has none.
 3. kernels each CUDA kernel against its plain PyTorch version at the
            path's shapes: the 3x3 conv's forward, dx and dk at every UNet
            stage (f32 and bf16 at B = 4 and at the train step's B = 16;
@@ -22,9 +22,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            NN at (4, 4096, 16384) and the stripe NN on a sorted synthetic
            map with mixed block counts, zeros included; then the median time
            of each next to its plain version: the forward and NN at the
-           eval step's B = 32, the conv's forward, dx and dk at the train
-           step's B = 16, in float32 and (beside cuDNN's own bfloat16 call)
-           in bfloat16.
+           eval step's B = 32; the conv's forward, dx and dk at the train
+           step's B = 16 in float32 and in bfloat16, replayed from CUDA
+           graphs beside cuDNN's own call in that type, with the
+           host-launched time logged beside.
 4. slice   ``Trainer.eval_step`` at the default ``Config()`` (full-width UNet,
            640x640, f32, pt2pt, 50-iteration stripe ICP) on a 32-item
            synthetic batch of 4096 scan and 16384 map points, with seeded
@@ -117,7 +118,8 @@ TRIM, TILE = 5.0, 256  # ICPConfig defaults: trim_dist, nn_stripe_tile
 # rotated and transposed weight, its backward's dx; its float32 kernel, the
 # one the default Config() runs, is conv3x3_tc.cu, and bfloat16 runs
 # conv3x3_bf16_tc.cu, a row of its own (as is K3's bfloat16 entry, the
-# tensor-core GEMM of conv3x3_dk_tc.cu; float32 dk runs conv3x3_dk.cu):
+# tensor-core GEMM of conv3x3_dk_tc.cu; float32 dk runs the 3xTF32 GEMM of
+# conv3x3_dk_tf32_tc.cu):
 # the float32 and bfloat16 paths count their launches in separate phases
 # (ROW_PHASES). One NN kernel has two launch modes: the sorted stripe (K4),
 # which the eval and train steps run every ICP iteration, and dense (K1),
@@ -126,7 +128,7 @@ TRIM, TILE = 5.0, 256  # ICPConfig defaults: trim_dist, nn_stripe_tile
 KERNELS = {
     "conv3x3": ("mm_masking_tpu_torch/csrc/conv3x3_tc.cu",
                 "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
-    "conv3x3_dk": ("mm_masking_tpu_torch/csrc/conv3x3_dk.cu",
+    "conv3x3_dk": ("mm_masking_tpu_torch/csrc/conv3x3_dk_tf32_tc.cu",
                    "mm_masking_tpu/ops/pallas/conv2d.py:184", ("conv3x3_dk",)),
     "conv3x3_bf16": ("mm_masking_tpu_torch/csrc/conv3x3_bf16_tc.cu",
                      "mm_masking_tpu/ops/pallas/conv2d.py:152", ("conv3x3", "conv3x3_dx")),
@@ -201,8 +203,9 @@ def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
 
 
 # The tensor-core kernels, by a fragment of their SASS names: K2's float32
-# and bfloat16 convs and K3's bfloat16 dk.
-TENSOR_CORE_KERNELS = ("conv3x3_tf32x3_kernel", "conv3x3_mma_bf16", "conv3x3_dk_mma_bf16")
+# and bfloat16 convs and K3's float32 and bfloat16 dk.
+TENSOR_CORE_KERNELS = ("conv3x3_tf32x3_kernel", "conv3x3_mma_bf16", "conv3x3_dk_mma_tf32x3",
+                       "conv3x3_dk_mma_bf16")
 
 
 def check_hmma(lib) -> None:
@@ -326,9 +329,8 @@ def check_bf16_float64(x, dy, w, label: str) -> None:
 def check_conv_backward(device, shapes) -> dict[str, float]:
     """dx (K2) and dk (K3) vs plain at every UNet stage shape, f32 and bf16 at
     B = 4 and at the train step's B = 16 (K3 splits its work by B), and the
-    bf16 forward and dx at B = 16 against float64 convs; then
-    forward, dx and dk times next to their plain versions at B = 16, summed
-    over one step (the first conv takes no dx: its input needs no gradient)."""
+    bf16 forward and dx at B = 16 against float64 convs; returns the largest
+    absolute differences from the plain versions."""
     g = torch.Generator().manual_seed(1)
     worst = {"dx_abs": 0.0, "dk_abs": 0.0, "dx_abs_bf16": 0.0, "dk_abs_bf16": 0.0}
 
@@ -345,16 +347,12 @@ def check_conv_backward(device, shapes) -> dict[str, float]:
         for dtype in (torch.float32, torch.bfloat16):
             check(*(t.to(device, dtype) for t in (x, dy, w)),
                   f"B={CHECK_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 {str(dtype)[6:]:8s}")
-    first, gd = shapes[0], torch.Generator(device=device).manual_seed(2)
-    ms = {k: 0.0 for k in ("fwd", "fwd_plain", "dx", "dx_plain", "dk", "dk_plain")}
+    gd = torch.Generator(device=device).manual_seed(2)
     for ci, co, h in sorted(set(shapes)):
-        n = shapes.count((ci, co, h))
-        n_dx = n - int((ci, co, h) == first)
         x = torch.randn(TRAIN_BATCH, ci, h, h, generator=gd, device=device)
         dy = torch.randn(TRAIN_BATCH, co, h, h, generator=gd, device=device)
         w = torch.randn(co, ci, 3, 3, generator=gd, device=device) * math.sqrt(
             2.0 / (9 * (ci + co)))
-        b = torch.zeros(co, device=device)
         # dk at B = 16, both types: the plain version (cuDNN's float32
         # wgrad) is up to 8.7e-5 (f32) and 7.5e-5 (bf16) off the float64 sum
         # of these inputs at 64 -> 64, 160^2 (on the H100), most of the 1e-4
@@ -368,43 +366,32 @@ def check_conv_backward(device, shapes) -> dict[str, float]:
         xb, dyb, wb = (t.bfloat16() for t in (x, dy, w))
         check(xb, dyb, wb, f"{label} bfloat16", dk_vs_plain=False)
         check_bf16_float64(xb, dyb, wb, label)
-        f, fp = in_turns(lambda: conv3x3_plain(x, w, b, True),
-                         lambda: conv3x3_forward(x, w, b, True), cuda_ms)
-        dx, dxp = in_turns(lambda: conv3x3_dx_plain(dy, w), lambda: conv3x3_dx(dy, w), cuda_ms)
-        dk, dkp = in_turns(lambda: conv3x3_dk_plain(x, dy), lambda: conv3x3_dk(x, dy), cuda_ms)
-        log("kernels", f"B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 x{n}: forward "
-            f"{f:.3f} (plain {fp:.3f}) ms, dx {dx:.3f} ({dxp:.3f}) ms, dk {dk:.3f} "
-            f"({dkp:.3f}) ms")
-        for key, t, k in (("fwd", f, n), ("fwd_plain", fp, n), ("dx", dx, n_dx),
-                          ("dx_plain", dxp, n_dx), ("dk", dk, n), ("dk_plain", dkp, n)):
-            ms[key] += k * t
-    log("kernels", f"one train step's convs at B={TRAIN_BATCH} (ms, kernel / plain): "
-        f"forward {ms['fwd']:.2f} / {ms['fwd_plain']:.2f}, dx {ms['dx']:.2f} / "
-        f"{ms['dx_plain']:.2f}, dk {ms['dk']:.2f} / {ms['dk_plain']:.2f}")
-    return {**worst, **ms}
+    return worst
 
 
-def time_conv_bf16(device, shapes) -> dict[str, float]:
-    """One bfloat16 train step's forward, dx and dk at B = 16, stage by
+def time_convs(device, shapes, dtype) -> dict[str, float]:
+    """One train step's forward, dx and dk at B = 16 in ``dtype``, stage by
     stage, as device time replayed from CUDA graphs (``graph_ms``, as the
     graph train step runs them): the kernels beside their plain versions
-    (float32 cuDNN on the widened inputs) and beside cuDNN's own bfloat16
-    calls (``F.conv2d``, ``conv2d_input``, ``conv2d_weight``), in turns; and
-    each kernel's call launched from the host (``cuda_ms``, the method of the
-    earlier rows, which also counts the wrapper's host time where the card
-    waits for it). ms summed over the step's convs."""
+    (float32 cuDNN, on the widened inputs for bfloat16) and beside cuDNN's
+    own calls in ``dtype`` (``F.conv2d``, ``conv2d_input``,
+    ``conv2d_weight``; TF32 off), in turns; and each kernel's call launched
+    from the host (``cuda_ms``, which also counts the wrapper's host time
+    where the card waits for it). ms summed over the step's convs (the first
+    conv takes no dx: its input needs no gradient)."""
     first, gd = shapes[0], torch.Generator(device=device).manual_seed(4)
+    name = str(dtype)[6:]
     keys = [f"{job}{path}" for job in ("fwd", "dx", "dk")
             for path in ("", "_plain", "_lib", "_host")]
     ms = dict.fromkeys(keys, 0.0)
     for ci, co, h in sorted(set(shapes)):
         n = shapes.count((ci, co, h))
         n_dx = n - int((ci, co, h) == first)
-        x = torch.randn(TRAIN_BATCH, ci, h, h, generator=gd, device=device).bfloat16()
-        dy = torch.randn(TRAIN_BATCH, co, h, h, generator=gd, device=device).bfloat16()
+        x = torch.randn(TRAIN_BATCH, ci, h, h, generator=gd, device=device).to(dtype)
+        dy = torch.randn(TRAIN_BATCH, co, h, h, generator=gd, device=device).to(dtype)
         w = (torch.randn(co, ci, 3, 3, generator=gd, device=device) * math.sqrt(
-            2.0 / (9 * (ci + co)))).bfloat16()
-        b = torch.zeros(co, device=device, dtype=torch.bfloat16)
+            2.0 / (9 * (ci + co)))).to(dtype)
+        b = torch.zeros(co, device=device, dtype=dtype)
         jobs = {
             "fwd": (lambda: conv3x3_forward(x, w, b, True), lambda: conv3x3_plain(x, w, b, True),
                     lambda: torch.relu(F.conv2d(x, w, b, padding=1))),
@@ -419,12 +406,12 @@ def time_conv_bf16(device, shapes) -> dict[str, float]:
             row[job] = (k, graph_ms(plain), lib_ms, cuda_ms(kernel))
             for path, t in zip(("", "_plain", "_lib", "_host"), row[job]):
                 ms[job + path] += (n_dx if job == "dx" else n) * t
-        log("kernels", f"bf16 B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 x{n} (ms replayed, "
-            f"kernel / plain / cuDNN bf16; host-launched kernel): " + ", ".join(
+        log("kernels", f"{name} B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 x{n} (ms "
+            f"replayed, kernel / plain / cuDNN {name}; host-launched kernel): " + ", ".join(
                 f"{job} {k:.3f} / {p:.3f} / {lb:.3f}; {hk:.3f}"
                 for job, (k, p, lb, hk) in row.items()))
-    log("kernels", f"one bf16 train step's convs at B={TRAIN_BATCH} (ms replayed, kernel / plain / "
-        f"cuDNN bf16; host-launched kernel): " + ", ".join(
+    log("kernels", f"one {name} train step's convs at B={TRAIN_BATCH} (ms replayed, kernel / "
+        f"plain / cuDNN {name}; host-launched kernel): " + ", ".join(
             f"{job} {ms[job]:.2f} / {ms[job + '_plain']:.2f} / {ms[job + '_lib']:.2f}; "
             f"{ms[job + '_host']:.2f}" for job in ("fwd", "dx", "dk")))
     return ms
@@ -930,7 +917,8 @@ def main() -> int:
     shapes = conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width)
     conv_err, conv_err16, conv_ms, conv_plain = check_conv(device, shapes)
     bwd = check_conv_backward(device, shapes)
-    bf16 = time_conv_bf16(device, shapes)
+    f32 = time_convs(device, shapes, torch.float32)
+    bf16 = time_convs(device, shapes, torch.bfloat16)
     dense = check_dense(batch)
     stripe = check_stripe(batch)
     trainer = Trainer(cfg, device)
@@ -957,21 +945,20 @@ def main() -> int:
     # forward and at B = 4 and 16 for dx and dk (both types). conv3x3
     # (forward and dx): one train step's forward + dx at B = 16 (the eval
     # step's forward at B = 32 is logged above); conv3x3_dk: one train
-    # step's dk at B = 16. The float32 plain versions are cuDNN's calls
-    # (F.conv2d, torch.nn.grad.conv2d_weight), so those are their library
-    # times; the bfloat16 plain versions widen to float32, and the library
-    # call is cuDNN's own bfloat16 one. The float32 rows' times are
-    # host-launched (cuda_ms), the bfloat16 rows' replayed from CUDA graphs
-    # (graph_ms; their host-launched sums are logged above). No single
-    # PyTorch call computes an NN argmin.
+    # step's dk at B = 16. The conv rows' times are replayed from CUDA
+    # graphs (graph_ms; their host-launched sums are logged above), and the
+    # library call is cuDNN's own in the input type (F.conv2d,
+    # conv2d_input, conv2d_weight); the bfloat16 plain versions widen to
+    # float32. The NN rows are host-launched (cuda_ms). No single PyTorch
+    # call computes an NN argmin.
     works, works16 = conv_works(shapes, TRAIN_BATCH), conv_works(shapes, TRAIN_BATCH,
                                                                  torch.bfloat16)
     measured = {
-        "conv3x3": {"max_abs_err": max(conv_err, bwd["dx_abs"]), "ms": bwd["fwd"] + bwd["dx"],
-                    "plain_ms": bwd["fwd_plain"] + bwd["dx_plain"],
-                    "library_ms": bwd["fwd_plain"] + bwd["dx_plain"]},
-        "conv3x3_dk": {"max_abs_err": bwd["dk_abs"], "ms": bwd["dk"], "plain_ms": bwd["dk_plain"],
-                       "library_ms": bwd["dk_plain"]},
+        "conv3x3": {"max_abs_err": max(conv_err, bwd["dx_abs"]), "ms": f32["fwd"] + f32["dx"],
+                    "plain_ms": f32["fwd_plain"] + f32["dx_plain"],
+                    "library_ms": f32["fwd_lib"] + f32["dx_lib"]},
+        "conv3x3_dk": {"max_abs_err": bwd["dk_abs"], "ms": f32["dk"], "plain_ms": f32["dk_plain"],
+                       "library_ms": f32["dk_lib"]},
         "conv3x3_bf16": {"max_abs_err": max(conv_err16, bwd["dx_abs_bf16"]),
                          "ms": bf16["fwd"] + bf16["dx"],
                          "plain_ms": bf16["fwd_plain"] + bf16["dx_plain"],

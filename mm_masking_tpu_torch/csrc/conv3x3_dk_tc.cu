@@ -2,8 +2,8 @@
 // NCHW, float32 sums and result, on the tensor cores.
 //
 // Replaces: mm_masking_tpu/ops/pallas/conv2d.py::_dk_nhcw_raw (kernel body
-// _dk_kernel, pallas_call at :184) for bfloat16 inputs; float32 inputs stay
-// on conv3x3_dk.cu.
+// _dk_kernel, pallas_call at :184) for bfloat16 inputs; float32 inputs run
+// the 3xTF32 GEMM of conv3x3_dk_tf32_tc.cu.
 //
 //   dk[co][ci][kh][kw] = sum_{b,h,w} dy[b][co][h][w] * x[b][ci][h+kh-1][w+kw-1]
 //
@@ -49,12 +49,12 @@
 //   running float32 sums in registers with ordinary adds. Nothing is summed
 //   across tiles inside the mma.
 // - The reduction over pixels takes two passes and no float atomics, as in
-//   conv3x3_dk.cu: a block owns a (channel tile, chunk of consecutive spatial
-//   tiles) and writes its float32 sums to the scratch (n_chunks, Co, Ci, 9);
-//   the warps that split a tile's k-steps (WK > 1) add theirs through shared
-//   memory in warp order; pass two (dk_chunk_sum.cuh, shared with
-//   conv3x3_dk.cu) sums the chunks in chunk order. Every sum runs in a fixed
-//   order, so two runs give the same bits.
+//   conv3x3_dk_tf32_tc.cu: a block owns a (channel tile, chunk of
+//   consecutive spatial tiles) and writes its float32 sums to the scratch
+//   (n_chunks, Co, Ci, 9); the warps that split a tile's k-steps (WK > 1) add
+//   theirs through shared memory in warp order; pass two (dk_chunk_sum.cuh,
+//   shared with conv3x3_dk_tf32_tc.cu) sums the chunks in chunk order. Every
+//   sum runs in a fixed order, so two runs give the same bits.
 // - Enough blocks for both ends: the host sizes the chunks so that each shape
 //   launches whole waves of the blocks an SM holds (2 to 8 per SM, by tile).
 //   At 256->256, 40^2 the 144 x 64 channel tiles give 64 blocks and the

@@ -1,7 +1,7 @@
-// Pass two of K3's weight gradient, shared by its float32 (conv3x3_dk.cu) and
-// bfloat16 (conv3x3_dk_tc.cu) kernels: the chunks' float32 partial sums,
-// added in chunk order. With pass one's fixed order, two runs give the same
-// bits.
+// Pass two of K3's weight gradient, shared by its float32
+// (conv3x3_dk_tf32_tc.cu) and bfloat16 (conv3x3_dk_tc.cu) kernels: the
+// chunks' float32 partial sums, added in chunk order. With pass one's fixed
+// order, two runs give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>

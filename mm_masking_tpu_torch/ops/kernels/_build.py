@@ -38,7 +38,7 @@ _SIGNATURES = {
     "mm_conv3x3_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, partial, dk, B, Ci, Co, H, W, n_chunks, stream (f32:
-    # conv3x3_dk.cu, bf16: conv3x3_dk_tc.cu)
+    # conv3x3_dk_tf32_tc.cu, bf16: conv3x3_dk_tc.cu)
     "mm_conv3x3_dk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_dk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # p, q4, start_blk, nblk, B, N, M, rows, tm, idx, d2, stream
@@ -59,7 +59,8 @@ _HOST = {
     # B, Ci, Co, H, W → K3's spatial chunks (f32, bf16)
     "mm_conv3x3_dk_chunks": ([_I] * 5, _I),
     "mm_conv3x3_dk_bf16_chunks": ([_I] * 5, _I),
-    # Ci, Co → shared bytes of one block of K3's bf16 kernel
+    # Ci, Co → shared bytes of one block of K3's kernel (f32, bf16)
+    "mm_conv3x3_dk_f32_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     "mm_conv3x3_dk_bf16_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Co, W → shared bytes of one block of the f32 conv (K2)
     "mm_conv3x3_f32_smem_bytes": ([_I] * 2, ctypes.c_size_t),

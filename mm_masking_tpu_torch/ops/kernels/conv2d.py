@@ -1,9 +1,9 @@
 """3×3 SAME stride-1 conv (+bias, optional fused ReLU) with its backward: the
 CUDA kernels of K2 (forward, and dx of the backward, on the tensor cores:
 ``csrc/conv3x3_tc.cu`` through 3xTF32 for float32, ``csrc/conv3x3_bf16_tc.cu``
-for bfloat16) and K3 (weight gradient: ``csrc/conv3x3_dk.cu`` for float32,
-``csrc/conv3x3_dk_tc.cu`` on the tensor cores for bfloat16), and their plain
-PyTorch versions.
+for bfloat16) and K3 (weight gradient, on the tensor cores:
+``csrc/conv3x3_dk_tf32_tc.cu`` through 3xTF32 for float32,
+``csrc/conv3x3_dk_tc.cu`` for bfloat16), and their plain PyTorch versions.
 
 Counterpart of ``mm_masking_tpu.ops.pallas.conv2d.conv3x3_nhcw`` and its
 custom VJP. The port keeps PyTorch's NCHW layout and OIHW weights; the JAX

@@ -254,6 +254,20 @@ def test_conv3x3_dk_bf16_matches_float64(cuda, Ci, Co, H):
     assert rel_err(dk, dk64) <= 1e-5
 
 
+# The same two stages of a float32 train step.
+@pytest.mark.parametrize("Ci,Co,H", [(1, 8, 640), (256, 256, 40)])
+def test_conv3x3_dk_f32_matches_float64(cuda, Ci, Co, H):
+    """K3's float32 GEMM splits x and dy into TF32 halves, takes three
+    products each and starts a fresh tensor-core accumulator per row of a
+    tile: within 1e-5 of max |dk| of a float64 sum of the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(16, Ci, H, H, device=cuda, generator=g)
+    dy = torch.randn(16, Co, H, H, device=cuda, generator=g)
+    dk = conv3x3_dk(x, dy)
+    dk64 = torch.nn.grad.conv2d_weight(x.double(), dk.shape, dy.double(), padding=1)
+    assert rel_err(dk, dk64) <= 1e-5
+
+
 # The bf16 path's three kinds of chunk at a train step's B = 16: Ci = 1 (the
 # 9 taps in one k-step) and 16 (one tap a k-step) at 640^2, bound by bytes,
 # and the widest stage, 256 -> 256 at 40^2; dx runs the same kernel on Co
@@ -286,6 +300,14 @@ def test_conv3x3_bf16_blocks_fit_the_shared_memory(cuda):
     Co out) and as dx (Co in, Ci out), fits the 227 KB a block may have."""
     smem = library().mm_conv3x3_bf16_smem_bytes
     sizes = {smem(a, c) for ci, co, _ in conv3x3_shapes() for a, c in ((ci, co), (co, ci))}
+    assert all(0 < s <= SMEM_LIMIT for s in sizes), sizes
+
+
+def test_conv3x3_dk_f32_blocks_fit_the_shared_memory(cuda):
+    """The float32 dk block at each UNet stage shape fits the 227 KB a block
+    may have."""
+    smem = library().mm_conv3x3_dk_f32_smem_bytes
+    sizes = {smem(ci, co) for ci, co, _ in conv3x3_shapes()}
     assert all(0 < s <= SMEM_LIMIT for s in sizes), sizes
 
 

@@ -218,23 +218,34 @@ def test_conv3x3_dk_matches_pallas(Ci, dtype):
 
 
 def dk_tile_order(x: torch.Tensor, dy: torch.Tensor, th: int, tw: int,
-                  tiles_per_chunk: int) -> torch.Tensor:
+                  tiles_per_chunk: int, split: bool = False) -> torch.Tensor:
     """dk (Co, Ci, 3, 3) summed in the order of K3's bfloat16 kernel
     (csrc/conv3x3_dk_tc.cu), from float32 x and dy that hold bf16 values:
     each spatial tile of th × tw pixels (zero past the image) summed alone in
     float32, where each product is exact; the tiles of a chunk (consecutive
     tiles in (b, tile row, tile column) order) added in float32 in order;
-    then the chunks added in chunk order."""
+    then the chunks added in chunk order. ``split``: the arithmetic of K3's
+    float32 kernel (csrc/conv3x3_dk_tf32_tc.cu) on float32 x and dy, each
+    split into big = tf32(v) and small = tf32(v − big), a tile's sum taken
+    as the products small·big, then big·small, then big·big (each exact in
+    float32)."""
     B, Ci, H, W = x.shape
     Co = dy.shape[1]
     nth, ntw = -(-H // th), -(-W // tw)
     Hp, Wp = nth * th, ntw * tw
-    xp = F.pad(x, (1, 1 + Wp - W, 1, 1 + Hp - H))
-    d = F.pad(dy, (0, Wp - W, 0, Hp - H)).reshape(B, Co, nth, th, ntw, tw)
-    taps = [torch.einsum("bihpwq,bohpwq->bhwoi",
-                         xp[:, :, kh:kh + Hp, kw:kw + Wp].reshape(B, Ci, nth, th, ntw, tw), d)
-            for kh in range(3) for kw in range(3)]
-    tiles = torch.stack(taps, -1).reshape(B * nth * ntw, Co, Ci, 9)
+    pairs = [(x, dy)]
+    if split:
+        xb, db = (torch.from_numpy(tf32(t.numpy())) for t in (x, dy))
+        xs, ds = (torch.from_numpy(tf32((t - b).numpy())) for t, b in ((x, xb), (dy, db)))
+        pairs = [(xs, db), (xb, ds), (xb, db)]
+    tiles = 0
+    for xt, dt in pairs:
+        xp = F.pad(xt, (1, 1 + Wp - W, 1, 1 + Hp - H))
+        d = F.pad(dt, (0, Wp - W, 0, Hp - H)).reshape(B, Co, nth, th, ntw, tw)
+        taps = [torch.einsum("bihpwq,bohpwq->bhwoi",
+                             xp[:, :, kh:kh + Hp, kw:kw + Wp].reshape(B, Ci, nth, th, ntw, tw), d)
+                for kh in range(3) for kw in range(3)]
+        tiles = tiles + torch.stack(taps, -1).reshape(B * nth * ntw, Co, Ci, 9)
     n_chunks = -(-len(tiles) // tiles_per_chunk)
     tiles = F.pad(tiles, (0, 0, 0, 0, 0, 0, 0, n_chunks * tiles_per_chunk - len(tiles)))
     tiles = tiles.reshape(n_chunks, tiles_per_chunk, Co, Ci, 9)
@@ -277,12 +288,46 @@ def test_dk_bf16_tile_sums_keep_float32_accuracy(Ci, Co, H, W, th, per_chunk):
                                atol=2e-2 * np.abs(want).max())
 
 
+# The float32 kernel's tiles: 32 x 40 pixels for Ci = 1, 4 x 40 from 33
+# output channels on; a few tiles a chunk, so that both the runs within a
+# chunk and the sum over chunks are taken.
+@pytest.mark.parametrize("Ci,Co,H,W,th,per_chunk", [(1, 8, 48, 80, 32, 2), (64, 64, 16, 40, 4, 3)])
+def test_dk_3xtf32_tile_sums_keep_float32_accuracy(Ci, Co, H, W, th, per_chunk):
+    """K3's float32 arithmetic emulated: x and dy split into TF32 halves, the
+    three products of each tile summed in float32 in the kernel's order,
+    then the tiles of each chunk, then the chunks in chunk order. Within
+    1e-5 of max |dk| of a float64 sum of the float32 inputs (one TF32
+    product, big·big alone, is not), and equal to the Pallas dk kernel
+    (interpret mode, f32) within the f32 limit of
+    test_conv3x3_dk_matches_pallas. This checks the split and the order of
+    summation, not the kernel: no code of the port runs here. The kernel's
+    own accuracy is held on the card by test_conv3x3_dk_f32_matches_float64
+    and by chip_smoke.py."""
+    B = 2
+    rng = np.random.default_rng(23)
+    x = (rng.standard_normal((B, Ci, H, W)) * 0.1).astype(np.float32)
+    dy = (rng.standard_normal((B, Co, H, W)) * 0.1).astype(np.float32)
+    xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
+    got = dk_tile_order(xt, dyt, th, 40, per_chunk, split=True)
+    want64 = torch.nn.grad.conv2d_weight(xt.double(), got.shape, dyt.double(), padding=1)
+    scale = want64.abs().max().item()
+    assert (got.double() - want64).abs().max().item() <= 1e-5 * scale
+    one = dk_tile_order(torch.from_numpy(tf32(x)), torch.from_numpy(tf32(dy)), th, 40, per_chunk)
+    assert (one.double() - want64).abs().max().item() > 1e-5 * scale
+
+    Cip, Cop, Wp = max(8, -(-Ci // 8) * 8), max(8, -(-Co // 8) * 8), -(-W // 128) * 128
+    xj = _pad_cw(jnp.asarray(x).transpose(0, 2, 1, 3), Cip, Wp)
+    dyj = _pad_cw(jnp.asarray(dy).transpose(0, 2, 1, 3), Cop, Wp)
+    want = np.asarray(_dk_nhcw_raw(xj, dyj, _pick_th(H))).reshape(3, 3, Cip, Cop)[:, :, :Ci, :Co]
+    np.testing.assert_allclose(got.permute(2, 3, 1, 0).numpy(), want, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype,entry,sizing", [
     (torch.float32, "mm_conv3x3_dk_f32", "mm_conv3x3_dk_chunks"),
     (torch.bfloat16, "mm_conv3x3_dk_bf16", "mm_conv3x3_dk_bf16_chunks"),
 ])
 def test_conv3x3_dk_routes_each_precision_to_its_entry(monkeypatch, dtype, entry, sizing):
-    """On the card, K3 takes float32 to conv3x3_dk.cu and bfloat16 to
+    """On the card, K3 takes float32 to conv3x3_dk_tf32_tc.cu and bfloat16 to
     conv3x3_dk_tc.cu, each with the scratch its own host function sizes."""
     from mm_masking_tpu_torch.ops.kernels import conv2d
 
