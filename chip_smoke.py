@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port's eval and train paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 - --time-nn < path/to/chip_smoke.py   # from another tree's root
+
+``--time-nn`` only builds that tree's kernels and times its K1 and K4 on this
+script's inputs, as phase 3 does, through the wrappers' public names: a
+parent commit's kernels timed the same way as this one's.
 
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
@@ -19,13 +24,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            alone decides dk at B = 16, where the plain version's own error
            nears the kernel-vs-plain limit; the bf16 forward and dx at
            B = 16 also elementwise against a float64 conv), the dense
-           NN at (4, 4096, 16384) and the stripe NN on a sorted synthetic
-           map with mixed block counts, zeros included; then the median time
-           of each next to its plain version: the forward and NN at the
-           eval step's B = 32; the conv's forward, dx and dk at the train
-           step's B = 16 in float32 and in bfloat16, replayed from CUDA
-           graphs beside cuDNN's own call in that type, with the
-           host-launched time logged beside.
+           NN (K1) at (32, 4096, 16384) and the stripe NN (K4) on a sorted
+           synthetic map with mixed block counts, zeros included, each also
+           on tie-heavy inputs with rows that find no finite distance (idx 0,
+           d2 inf), idx equal and d2 bit for bit, and bitwise across two
+           runs; then the median time of each next to its plain version: the
+           forward at the eval step's B = 32; K1 and K4 there, replayed from
+           CUDA graphs, with their bound and issue floor; the conv's
+           forward, dx and dk at the train step's B = 16 in float32 and in
+           bfloat16, replayed from CUDA graphs beside cuDNN's own call in
+           that type; each with the host-launched time logged beside.
 4. slice   ``Trainer.eval_step`` at the default ``Config()`` (full-width UNet,
            640x640, f32, pt2pt, 50-iteration stripe ICP) on a 32-item
            synthetic batch of 4096 scan and 16384 map points, with seeded
@@ -33,7 +41,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            reads the stop test at most 10 times. The launch counters must
            show the kernels ran; the poses must match the same step run
            eagerly on the kernels (same iteration count, 1e-6 m, 1e-5 deg)
-           and with the plain versions. Then the same step with the dense
+           and with the plain versions. The step's own first stripe
+           association, run eagerly, logs its nblk histogram, pairs, bound
+           and K4's time on its inputs. Then the same step with the dense
            association (``icp_overrides=("nn_stripe=false",)``), the path of
            K1. Each step is timed on the graph, eager and plain paths. Then
            the eval step once more with ``model.dtype="bfloat16"`` (K2's
@@ -424,75 +434,198 @@ def nn_inputs(batch):
     return p, batch["map_data"]["pc"]
 
 
-def check_dense(batch) -> tuple[float, float, float]:
-    p, q = nn_inputs(batch)
-    ps, qs = p[:CHECK_BATCH].contiguous(), q[:CHECK_BATCH]
-    idx, d2 = nn_assoc.nn_argmin(ps, qs)
-    with kernels.plain_versions():
-        idx_p, d2_p = nn_assoc.nn_argmin(ps, qs)
-    err = (d2 - d2_p).abs().max().item()
-    log("kernels", f"nn_argmin {tuple(ps.shape[:2]) + (qs.shape[1],)}: idx equal "
-        f"{bool(torch.equal(idx, idx_p))}, max|d2-d2_plain|={err:.3e}")
-    if not torch.equal(idx, idx_p):
-        raise AssertionError("nn_argmin: kernel and plain indices differ")
-    q4 = nn_assoc.map_layout(q)
-    q3 = q[..., :3]
-
-    def plain():
-        with kernels.plain_versions():
-            nn_assoc.nn_argmin(p, q3)
-
-    k_ms, p_ms = in_turns(plain, lambda: nn_assoc.nn_argmin(p, q3, q4),
-                          lambda fn: cuda_ms(fn, reps=3))
-    B, N, M = p.shape[0], p.shape[1], q.shape[1]
-    # 8 operations per (scan, map) pair: 3 differences, 3 squares, 2 sums;
-    # p and q in, index and d2 out.
-    bound = bound_ms(8 * B * N * M, B * (12 * N + 12 * M + 8 * N), torch.float32)
-    log("kernels", f"nn_argmin B={B} N={N} M={M}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
-    return err, k_ms, p_ms, bound
-
-
-def check_stripe(batch) -> tuple[float, float, float]:
+def stripe_inputs(batch):
+    """The smoke's stripe call on ``batch``: the map sorted and the scan rows
+    grouped by key, the dispatcher's default window and block size, each
+    tile's blocks within the budget, and every third item frozen (nblk 0), as
+    the per-item tolerance freeze makes them: (p, q3, q4, start, nblk, tm)."""
     p, q = nn_inputs(batch)
     q_s, key_s, use_x = nn_assoc.stripe_sort_target(q)
     order = torch.argsort(torch.where(use_x[:, None], p[..., 0], p[..., 1]), dim=1,
                           stable=True)
     p = torch.gather(p, 1, order[..., None].expand(-1, -1, 3)).contiguous()
-    B, N, M = p.shape[0], p.shape[1], q.shape[1]
+    M = q.shape[1]
     window = M // 4  # the dispatcher's default window, and its block size:
     tm = next(t for t in (1024, 512, 256, 128) if M % t == 0 and window % t == 0)
     start, nblk = nn_assoc.stripe_blocks(p, key_s, use_x, TRIM, TILE, tm)
     nblk = nblk.clamp(max=window // tm + 1)
-    nblk[1::3] = 0  # frozen items, as the per-item tolerance freeze makes them
-    log("kernels", f"nn_stripe nblk histogram "
-        f"{torch.bincount(nblk.flatten().long()).tolist()}")
-    q3, q4 = q_s[..., :3], nn_assoc.map_layout(q_s)
-    idx, d2 = nn_assoc.nn_stripe(p, q3, start, nblk, tm, q4)
+    nblk[1::3] = 0
+    return p, q_s[..., :3], nn_assoc.map_layout(q_s), start, nblk, tm
+
+
+def tie_heavy(device, B, N, M, seed):
+    """Scan and map points on a coarse grid (many equal distances), exact
+    duplicate map points, map pad rows at 1000, and rows 3 and 4 with no
+    finite distance (a NaN scan point; one whose every d2 overflows)."""
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randint(-12, 12, (B, N, 3), generator=g).float() * 0.5
+    q = torch.randint(-12, 12, (B, M, 3), generator=g).float() * 0.5
+    q[:, M // 2:M // 2 + 40] = q[:, 7:47]
+    q[:, -9:] = 1000.0
+    p[:, 3] = float("nan")
+    p[:, 4] = torch.tensor([1e30, 0.0, 0.0])
+    return p.to(device), q.to(device)
+
+
+def hold_nn(label: str, run, live=None, no_finite=()) -> float:
+    """``run()`` (an NN wrapper's call) on the kernel, again, and on the plain
+    version: idx equal and d2 bit for bit on the ``live`` rows (every row
+    where None), the rows ``no_finite`` at idx 0 and d2 inf, and the two
+    kernel runs bit for bit; raises otherwise and returns max |Δd2| over the
+    finite rows (0 where the bits agree)."""
+    idx, d2 = run()
+    idx2, d22 = run()
     with kernels.plain_versions():
-        idx_p, d2_p = nn_assoc.nn_stripe(p, q3, start, nblk, tm)
+        idx_p, d2_p = run()
+    if live is None:
+        live = torch.ones_like(idx, dtype=torch.bool)
+
+    def same(a, b):
+        return torch.equal(a[live].view(torch.int32), b[live].view(torch.int32))
+
+    ok = same(idx, idx_p) and same(d2, d2_p)
+    stable = same(idx, idx2) and same(d2, d22)
+    none = all(bool((idx[:, r] == 0).all() and torch.isinf(d2[:, r]).all()) for r in no_finite)
+    diff = torch.where(d2 == d2_p, 0.0, (d2 - d2_p).abs())[live]
+    err = diff[torch.isfinite(diff)].max().item() if diff.numel() else 0.0
+    log("kernels", f"{label}: idx and d2 bits equal to plain {ok}, two runs bitwise "
+        f"{stable}" + (f", rows {list(no_finite)} idx 0 / d2 inf {none}" if no_finite else ""))
+    if not (ok and stable and none):
+        raise AssertionError(f"{label}: kernel differs from plain, between runs, or on the "
+                             f"rows with no finite distance")
+    return err
+
+
+def check_nn(batch) -> dict[str, float]:
+    """K1 (dense) and K4 (stripe) against their plain versions, each on the
+    smoke's inputs at B = 32, on tie-heavy inputs with rows that find no
+    finite distance, bitwise across two runs (``hold_nn``); K4's tie-heavy
+    case at B = 32, N = 4096, M = 16384 with tiles of 0 to 16 map blocks
+    (one scanning the whole map, runs past its end). Returns the largest
+    |Δd2| of each."""
+    device = batch["map_data"]["pc"].device
+    p, q = nn_inputs(batch)
+    q3 = q[..., :3]
+    err = {"nn_argmin": hold_nn(f"nn_argmin {tuple(p.shape[:2]) + (q.shape[1],)}",
+                                lambda: nn_assoc.nn_argmin(p, q3))}
+    pt, qt = tie_heavy(device, 3, 1000, 3001, seed=5)
+    err["nn_argmin"] = max(err["nn_argmin"], hold_nn(
+        "nn_argmin tie-heavy (3, 1000, 3001)", lambda: nn_assoc.nn_argmin(pt, qt),
+        no_finite=(3, 4)))
+    ps, qs3, qs4, start, nblk, tm = stripe_inputs(batch)
     live = (nblk > 0).repeat_interleave(TILE, dim=1)
-    same = torch.equal(idx[live], idx_p[live])
-    err = (d2[live] - d2_p[live]).abs().max().item()
-    log("kernels", f"nn_stripe B={B} N={N} M={M} tm={tm}: idx equal on live "
-        f"items {same}, max|d2-d2_plain|={err:.3e}")
-    if not same:
-        raise AssertionError("nn_stripe: kernel and plain indices differ on live items")
+    err["nn_stripe"] = hold_nn(
+        f"nn_stripe {tuple(ps.shape[:2]) + (qs3.shape[1],)} tm={tm}, nblk histogram "
+        f"{torch.bincount(nblk.flatten().long()).tolist()}",
+        lambda: nn_assoc.nn_stripe(ps, qs3, start, nblk, tm, qs4), live)
+    B, N, M = ps.shape[0], ps.shape[1], qs3.shape[1]
+    pt, qt = tie_heavy(device, B, N, M, seed=6)
+    g = torch.Generator(device=device).manual_seed(7)
+    start_t = torch.randint(0, M // tm, (B, N // TILE), generator=g, device=device,
+                            dtype=torch.int32)
+    nblk_t = torch.randint(0, M // tm + 1, (B, N // TILE), generator=g, device=device,
+                           dtype=torch.int32)
+    start_t[:, 0], nblk_t[:, 0] = 3, 2  # rows 3 and 4: a live tile from block 3
+    start_t[:, 1], nblk_t[:, 1] = 0, M // tm
+    live = (nblk_t > 0).repeat_interleave(TILE, dim=1)
+    err["nn_stripe"] = max(err["nn_stripe"], hold_nn(
+        f"nn_stripe tie-heavy {(B, N, M)}, nblk 0-{M // tm}",
+        lambda: nn_assoc.nn_stripe(pt, qt, start_t, nblk_t, tm), live, no_finite=(3, 4)))
+    return err
 
-    def plain():
+
+# One float32 instruction a lane a clock: 132 SMs x 128 lanes at the H100
+# SXM's 1.98 GHz boost clock. The NN kernels' issue floor takes 8 such
+# instructions a (scan, map) pair, the exact form's, which may not fuse.
+ISSUE_PER_S = 132 * 128 * 1.98e9
+NN_CALLS = 10  # calls in the CUDA graph that times an NN kernel
+
+
+def time_nn(label: str, kernel, plain, pairs: int, nbytes: int) -> dict:
+    """One NN call: the kernel replayed from a CUDA graph of NN_CALLS calls
+    (``graph_ms``, divided), launched from the host (``cuda_ms``), and the
+    plain version launched from the host (its stripe reads nblk's maximum on
+    the host and cannot be captured), in turns; its bound (8 operations a
+    pair at the float32 peak, the rows' bound from the start) and issue
+    floor. Logs and returns the row's numbers."""
+    def replayed():
+        return graph_ms(lambda: [kernel() for _ in range(NN_CALLS)]) / NN_CALLS
+
+    g1, h1, p1 = replayed(), cuda_ms(kernel), cuda_ms(plain, reps=3)
+    p2, h2, g2 = cuda_ms(plain, reps=3), cuda_ms(kernel), replayed()
+    row = {"ms": (g1 + g2) / 2, "host_ms": (h1 + h2) / 2, "plain_ms": (p1 + p2) / 2}
+    row["bound_ms"], row["bound_by"] = bound_ms(8 * pairs, nbytes, torch.float32)
+    floor = 8 * pairs / ISSUE_PER_S * 1e3
+    log("kernels", f"{label}: {pairs} pairs; kernel {row['ms']:.4f} ms replayed "
+        f"[{row['host_ms']:.4f} host-launched], plain {row['plain_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), issue floor {floor:.4f} ms")
+    return row
+
+
+def time_nn_rows(batch) -> dict[str, dict]:
+    """The K1 and K4 rows' times on the smoke's inputs: dense at B = 32,
+    N = 4096, M = 16384 and the stripe call of ``stripe_inputs``. Uses only
+    the wrappers' public names, so ``--time-nn`` times another tree's
+    kernels the same way."""
+    p, q = nn_inputs(batch)
+    q3, q4 = q[..., :3], nn_assoc.map_layout(q)
+    B, N, M = p.shape[0], p.shape[1], q.shape[1]
+    io = B * (12 * N + 12 * M + 8 * N)  # p and q in, idx and d2 out
+
+    def plain_dense():
         with kernels.plain_versions():
-            nn_assoc.nn_stripe(p, q3, start, nblk, tm)
+            nn_assoc.nn_argmin(p, q3)
 
-    k_ms, p_ms = in_turns(plain, lambda: nn_assoc.nn_stripe(p, q3, start, nblk, tm, q4),
-                          lambda fn: cuda_ms(fn, reps=3))
+    rows = {"nn_argmin": time_nn(f"nn_argmin B={B} N={N} M={M}",
+                                 lambda: nn_assoc.nn_argmin(p, q3, q4), plain_dense,
+                                 B * N * M, io)}
+    ps, qs3, qs4, start, nblk, tm = stripe_inputs(batch)
+
+    def plain_stripe():
+        with kernels.plain_versions():
+            nn_assoc.nn_stripe(ps, qs3, start, nblk, tm)
+
     # The pairs this launch's nblk asks for: each live tile of TILE rows
-    # against nblk blocks of tm map points, 8 operations each.
-    pairs = int(nblk.long().sum()) * tm * TILE
-    bound = bound_ms(8 * pairs, B * (12 * N + 12 * M + 8 * N) + 2 * nblk.numel() * 4,
-                     torch.float32)
-    log("kernels", f"nn_stripe: {pairs} candidate pairs; kernel {k_ms:.3f} ms, plain "
-        f"{p_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
-    return err, k_ms, p_ms, bound
+    # against nblk blocks of tm map points.
+    rows["nn_stripe"] = time_nn(
+        f"nn_stripe B={B} nblk histogram {torch.bincount(nblk.flatten().long()).tolist()}",
+        lambda: nn_assoc.nn_stripe(ps, qs3, start, nblk, tm, qs4), plain_stripe,
+        int(nblk.long().sum()) * tm * TILE, io + 2 * nblk.numel() * 4)
+    return rows
+
+
+def first_stripe_call(trainer: Trainer, params: dict, batch) -> None:
+    """The eval step's own first stripe association, run eagerly: logs its
+    nblk histogram, pairs, bound and issue floor, and K4's time on its
+    inputs replayed from a CUDA graph, the number to set beside K4's share
+    of the step's device time (50 such calls, later ones with frozen items)."""
+    calls, orig = [], nn_assoc.nn_stripe
+
+    def record(p, q, start_blk, nblk, tm, q4=None):
+        if not calls:
+            calls.append((p.clone(), q, start_blk.clone(), nblk.clone(), tm, q4))
+        return orig(p, q, start_blk, nblk, tm, q4)
+
+    # The wrapper counts its launch under its module name, which is record's
+    # while it stands in (this run is not a counted one).
+    record.launches = 0
+    nn_assoc.nn_stripe = record
+    try:
+        with kernels.eager():
+            trainer.eval_step(params, batch)
+    finally:
+        nn_assoc.nn_stripe = orig
+    p, q, start, nblk, tm, q4 = calls[0]
+    B, N, M = p.shape[0], p.shape[1], q.shape[1]
+    rows = N // nblk.shape[1]
+    pairs = int(nblk.long().sum()) * tm * rows
+    bound, by = bound_ms(8 * pairs, B * (12 * N + 12 * M + 8 * N) + 2 * nblk.numel() * 4,
+                         torch.float32)
+    ms = graph_ms(lambda: [orig(p, q, start, nblk, tm, q4) for _ in range(NN_CALLS)])
+    log("slice", f"the eval step's first stripe association: nblk histogram "
+        f"{torch.bincount(nblk.flatten().long()).tolist()} (tm={tm}, {rows} rows a tile), "
+        f"{pairs} pairs; K4 {ms / NN_CALLS:.4f} ms replayed, bound {bound:.4f} ms ({by}), "
+        f"issue floor {8 * pairs / ISSUE_PER_S * 1e3:.4f} ms")
 
 
 def most(t: torch.Tensor) -> float:
@@ -906,24 +1039,28 @@ def main() -> int:
 
     info = kernels.build()
     log("build", f"{info.path.name} in {info.seconds:.1f} s")
+    batch = synthetic_batch(1, BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    if sys.argv[1:] == ["--time-nn"]:
+        time_nn_rows(batch)
+        return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
     check_hmma(info.path)
 
     cfg = Config()  # full width: enc 8…256 at 640², f32, pt2pt, refresh 0
-    batch = synthetic_batch(1, BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
-                            device=device)
     shapes = conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width)
     conv_err, conv_err16, conv_ms, conv_plain = check_conv(device, shapes)
     bwd = check_conv_backward(device, shapes)
     f32 = time_convs(device, shapes, torch.float32)
     bf16 = time_convs(device, shapes, torch.bfloat16)
-    dense = check_dense(batch)
-    stripe = check_stripe(batch)
+    nn_err = check_nn(batch)
+    nn_rows = time_nn_rows(batch)
     trainer = Trainer(cfg, device)
     params = trainer.init_state(seed=0).params
     counts, solve = run_slice(trainer, params, batch)
+    first_stripe_call(trainer, params, batch)
     eval_times = time_eval(trainer, params, batch)
     dense_trainer = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, icp_overrides=cfg.model.icp_overrides + ("nn_stripe=false",))), device)
@@ -949,8 +1086,9 @@ def main() -> int:
     # graphs (graph_ms; their host-launched sums are logged above), and the
     # library call is cuDNN's own in the input type (F.conv2d,
     # conv2d_input, conv2d_weight); the bfloat16 plain versions widen to
-    # float32. The NN rows are host-launched (cuda_ms). No single PyTorch
-    # call computes an NN argmin.
+    # float32. The NN rows are replayed from CUDA graphs too (their
+    # host-launched times are logged above), their plain versions launched
+    # from the host. No single PyTorch call computes an NN argmin.
     works, works16 = conv_works(shapes, TRAIN_BATCH), conv_works(shapes, TRAIN_BATCH,
                                                                  torch.bfloat16)
     measured = {
@@ -965,17 +1103,14 @@ def main() -> int:
                          "library_ms": bf16["fwd_lib"] + bf16["dx_lib"]},
         "conv3x3_dk_bf16": {"max_abs_err": bwd["dk_abs_bf16"], "ms": bf16["dk"],
                             "plain_ms": bf16["dk_plain"], "library_ms": bf16["dk_lib"]},
-        "nn_stripe": {"max_abs_err": stripe[0], "ms": stripe[1], "plain_ms": stripe[2],
-                      "library_ms": None},
-        "nn_argmin": {"max_abs_err": dense[0], "ms": dense[1], "plain_ms": dense[2],
-                      "library_ms": None},
+        **{name: {"max_abs_err": nn_err[name], "library_ms": None, **row}
+           for name, row in nn_rows.items()},
         **probes,
     }
     for name, bound in (("conv3x3", seq_bound(works["fwd"] + works["dx"])),
                         ("conv3x3_dk", seq_bound(works["dk"])),
                         ("conv3x3_bf16", seq_bound(works16["fwd"] + works16["dx"])),
-                        ("conv3x3_dk_bf16", seq_bound(works16["dk"])),
-                        ("nn_stripe", stripe[3]), ("nn_argmin", dense[3])):
+                        ("conv3x3_dk_bf16", seq_bound(works16["dk"]))):
         measured[name]["bound_ms"], measured[name]["bound_by"] = bound
     phases = {"slice": counts, "dense": dense_counts, "slice_bf16": bf16_slice_counts,
               "train": train_counts, "train_bf16": bf16_counts, "probes": probe_counts}

@@ -41,8 +41,8 @@ _SIGNATURES = {
     # conv3x3_dk_tf32_tc.cu, bf16: conv3x3_dk_tc.cu)
     "mm_conv3x3_dk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mm_conv3x3_dk_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # p, q4, start_blk, nblk, B, N, M, rows, tm, idx, d2, stream
-    "mm_nn_argmin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # p, q4, start_blk, nblk, B, N, M, rows, tm, span, idx, d2, scratch, stream
+    "mm_nn_argmin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # xp, kmat, y, B, H, Ci, Co, W, TH, Wt, variant, relu, vec, stream
     "mm_probe_nhcw_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     "mm_probe_nhcw_bf16": [_P, _P, _P] + [_I] * 10 + [_P],

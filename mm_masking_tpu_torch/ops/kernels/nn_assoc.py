@@ -6,7 +6,15 @@ Counterpart of ``mm_masking_tpu.ops.pallas.nn_assoc``. Both kernels there
 (dense ``_nn_kernel`` and stripe ``_nn_stripe_kernel``) are one CUDA kernel
 here, launched by :func:`nn_argmin` (dense) and :func:`nn_stripe`. Results
 are first-occurrence argmins of the exact ``(p − q)²`` distance; no gradient
-is taken through them.
+is taken through them. A pair with a NaN distance is never chosen, and a row
+with no finite distance gets idx 0, d2 inf, as the TPU kernels give. (Those
+kernels drop a whole map block when one of its points is NaN, a result that
+depends on their block size; the port keeps the block's other points.)
+
+The kernel splits its work into units of one size, (a tile of scan rows, a
+span of map points), and merges the units' minima by the packed
+(d2 bits, index) minimum, whose result does not depend on the order in which
+the units finish.
 
 The sorted stripe: the map is sorted once per solve along its widest planar
 axis; a tile of scan rows grouped by that key only needs the contiguous run
@@ -24,7 +32,11 @@ import torch.nn.functional as F
 
 from mm_masking_tpu_torch.ops.kernels._build import launch, use_kernel
 
-NN_ROWS = 256  # scan rows per block of the dense launch
+NN_ROWS = 256  # scan rows per tile of the dense launch
+# Map points per unit of the kernel's work, dense and stripe: a stripe's live
+# units are few, and smaller ones spread better over the card (timed on the
+# H100 at the eval step's shapes).
+NN_SPAN, NN_STRIPE_SPAN = 1024, 256
 _PLAIN_ELEMS = 1 << 27  # distance-tile elements per step of the plain versions
 
 
@@ -71,6 +83,16 @@ def _check_points(p: torch.Tensor, q4: torch.Tensor) -> None:
                          f"{tuple(q4.shape)} {q4.dtype}")
 
 
+def _outputs(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's idx (B, N) int32 and d2 (B, N) float32, and its scratch of
+    packed (d2 bits, index) minima, (B, N) 64-bit, from the current stream's
+    pool (a captured step's own, under a CUDA graph)."""
+    B, N, _ = p.shape
+    return (torch.empty((B, N), dtype=torch.int32, device=p.device),
+            torch.empty((B, N), dtype=torch.float32, device=p.device),
+            torch.empty((B, N), dtype=torch.int64, device=p.device))
+
+
 def nn_argmin(p: torch.Tensor, q: torch.Tensor, q4: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense NN. p (B, N, 3), q (B, M, ≥3) → (idx (B, N) int32, d2 (B, N)).
@@ -83,10 +105,9 @@ def nn_argmin(p: torch.Tensor, q: torch.Tensor, q4: torch.Tensor | None = None
     _check_points(p, q4)
     B, N, _ = p.shape
     M = q4.shape[1]
-    idx = torch.empty((B, N), dtype=torch.int32, device=p.device)
-    d2 = torch.empty((B, N), dtype=torch.float32, device=p.device)
+    idx, d2, scratch = _outputs(p)
     launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), None, None,
-           B, N, M, NN_ROWS, M, idx.data_ptr(), d2.data_ptr())
+           B, N, M, NN_ROWS, M, NN_SPAN, idx.data_ptr(), d2.data_ptr(), scratch.data_ptr())
     nn_argmin.launches += 1
     return idx, d2
 
@@ -97,8 +118,9 @@ nn_argmin.launches = 0
 def nn_stripe_plain(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
                     nblk: torch.Tensor, tm: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain stripe version: each (item, tile) scans map points
-    [start·tm, (start + nblk)·tm) ∩ [0, M). Items of tiles with nblk = 0
-    get idx = start·tm, d2 = inf (the kernel leaves them unwritten)."""
+    [start·tm, (start + nblk)·tm) ∩ [0, M). A row with no finite distance
+    gets idx 0, d2 inf, as the TPU kernel's does; so do the rows of tiles
+    with nblk = 0, which the kernel leaves unwritten."""
     B, N, _ = p.shape
     T = start_blk.shape[1]
     rows = N // T
@@ -121,8 +143,9 @@ def nn_stripe_plain(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
         d = _sq_dist(pt[sl], qw)
         d = torch.where(valid[sl, :, None, :] & ~torch.isnan(d), d, float("inf"))
         arg = d.argmin(dim=3)
-        d2[sl] = d.gather(3, arg[..., None])[..., 0]
-        idx[sl] = cols[sl].gather(2, arg)
+        best = d.gather(3, arg[..., None])[..., 0]
+        d2[sl] = best
+        idx[sl] = torch.where(best < float("inf"), cols[sl].gather(2, arg), 0)
     return idx.reshape(B, N).to(torch.int32), d2.reshape(B, N)
 
 
@@ -147,14 +170,14 @@ def nn_stripe(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
     _check_points(p, q4)
     rows = N // T
     if rows > 1024:
-        raise ValueError(f"tile of {rows} rows exceeds one block (1024 threads)")
+        raise ValueError(f"tile of {rows} rows exceeds one unit of the kernel (1024 rows)")
     for t in (start_blk, nblk):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("start_blk and nblk must be contiguous int32")
-    idx = torch.empty((B, N), dtype=torch.int32, device=p.device)
-    d2 = torch.empty((B, N), dtype=torch.float32, device=p.device)
+    idx, d2, scratch = _outputs(p)
     launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), start_blk.data_ptr(),
-           nblk.data_ptr(), B, N, q4.shape[1], rows, tm, idx.data_ptr(), d2.data_ptr())
+           nblk.data_ptr(), B, N, q4.shape[1], rows, tm, NN_STRIPE_SPAN, idx.data_ptr(),
+           d2.data_ptr(), scratch.data_ptr())
     nn_stripe.launches += 1
     return idx, d2
 

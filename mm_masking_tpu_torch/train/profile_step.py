@@ -52,7 +52,7 @@ GROUPS = (
     ("conv3x3_tf32x3", "conv3x3 (K2 forward + dx)"),
     ("conv3x3_mma_bf16", "conv3x3 (K2 forward + dx)"),
     ("conv3x3_dk", "conv3x3_dk (K3)"),
-    ("nn_argmin_kernel", "nn_argmin (K4 / K1)"),
+    ("nn_argmin", "nn_argmin (K4 / K1)"),
     ("indexfunc", "index_add / index_select"),
     ("max_pool", "max-pool"),
     ("gemm", "GEMM/GEMV"),

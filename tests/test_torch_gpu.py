@@ -162,6 +162,65 @@ def test_full_range_stripe_scan_is_the_dense_kernel(cuda):
     assert (idx[:, 5] == 17).all() and (idx[:, 6] == 5999).all()
 
 
+def tie_heavy(seed, B, N, M):
+    """Points on a coarse grid (many equal distances), exact duplicate map
+    points, map pad rows at 1000, and two rows with no finite distance: a
+    NaN scan point and one whose every d2 overflows."""
+    rng = np.random.default_rng(seed)
+    p = (rng.integers(-12, 12, (B, N, 3)) * 0.5).astype(np.float32)
+    q = (rng.integers(-12, 12, (B, M, 3)) * 0.5).astype(np.float32)
+    q[:, M // 2:M // 2 + 40] = q[:, 7:47]
+    q[:, -9:] = 1000.0
+    p[:, 3] = np.nan
+    p[:, 4] = (1e30, 0.0, 0.0)
+    return torch.from_numpy(p), torch.from_numpy(q)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_nn_dense_kernel_matches_plain_on_ties(cuda):
+    """K1 against its plain version on tie-heavy inputs whose N and M are
+    multiples of no tile, unit or chunk: idx equal, d2 bit for bit, the rows
+    with no finite distance at idx 0 and d2 inf, and two runs equal."""
+    p, q = (t.to(cuda) for t in tie_heavy(21, 3, 1000, 3001))
+    idx, d2 = tnn.nn_argmin(p, q)
+    with plain_versions():
+        idx_p, d2_p = tnn.nn_argmin(p, q)
+    assert torch.equal(idx, idx_p) and same_bits(d2, d2_p)
+    assert (idx[:, 3:5] == 0).all() and torch.isinf(d2[:, 3:5]).all()
+    idx2, d22 = tnn.nn_argmin(p, q)
+    assert torch.equal(idx, idx2) and same_bits(d2, d22)
+
+
+def test_nn_stripe_kernel_matches_plain_on_unequal_tiles(cuda):
+    """K4 against its plain version at the eval step's B = 32, N = 4096,
+    M = 16384 on tie-heavy inputs, tiles of 0 to 16 map blocks (runs past the
+    map's end among them): live rows equal in idx and d2 bits, the rows with
+    no finite distance at idx 0 and d2 inf, two runs equal; a tile that scans
+    the whole map from block 0 gets the dense kernel's result."""
+    B, N, M, tn, tm = 32, 4096, 16384, 256, 1024
+    p, q = (t.to(cuda) for t in tie_heavy(22, B, N, M))
+    g = torch.Generator(device=cuda).manual_seed(23)
+    start = torch.randint(0, M // tm, (B, N // tn), generator=g, device=cuda, dtype=torch.int32)
+    nblk = torch.randint(0, M // tm + 1, (B, N // tn), generator=g, device=cuda,
+                         dtype=torch.int32)
+    start[:, 0], nblk[:, 0] = 3, 2  # the all-infinite rows' tile: live, from block 3
+    start[:, 1], nblk[:, 1] = 0, M // tm
+    idx, d2 = tnn.nn_stripe(p, q, start, nblk, tm)
+    with plain_versions():
+        idx_p, d2_p = tnn.nn_stripe(p, q, start, nblk, tm)
+    live = (nblk > 0).repeat_interleave(tn, dim=1)
+    assert torch.equal(idx[live], idx_p[live]) and same_bits(d2[live], d2_p[live])
+    assert (idx[:, 3:5] == 0).all() and torch.isinf(d2[:, 3:5]).all()
+    idx2, d22 = tnn.nn_stripe(p, q, start, nblk, tm)
+    assert torch.equal(idx[live], idx2[live]) and same_bits(d2[live], d22[live])
+    rows = slice(tn, 2 * tn)
+    idx_d, d2_d = tnn.nn_argmin(p[:, rows].contiguous(), q)
+    assert torch.equal(idx[:, rows], idx_d) and same_bits(d2[:, rows], d2_d)
+
+
 def test_bf16_eval_step_matches_plain(cuda):
     spec = SyntheticSpec(n_scan=512, n_map=2048, polar_shape=(128, 512),
                          cart_pixel_width=128, res=0.25, cart_resolution=0.5,

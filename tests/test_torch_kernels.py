@@ -545,6 +545,213 @@ def test_nn_stripe_matches_pallas_interpret():
                                atol=1e-6)
 
 
+def test_nn_stripe_all_infinite_row_matches_pallas():
+    """A row of a live tile with no finite distance (a NaN scan point, as a
+    non-finite pose makes; or one so far out that every d2 overflows) gets
+    idx 0 and d2 inf, as the TPU kernel gives, whichever block its tile
+    starts at."""
+    p, q, start, nblk, tn, tm = stripe_case(seed=16)
+    start[:, 0], nblk[:, 0] = 3, 2  # tile 0 of every item is live, from block 3
+    p[:, 5] = np.nan
+    p[0, 70] = (1e30, 0.0, 0.0)  # tile 1 of item 0
+    assert nblk[0, 1] > 0
+    idx_j, d2_j = jnn._nn_stripe_pallas(
+        jnp.pad(jnp.asarray(p), ((0, 0), (0, 0), (0, 5))), jnn.coord_major(jnp.asarray(q)),
+        jnp.asarray(start), tn=tn, tm=tm, nk=int(nblk.max()), interpret=True,
+        nblk=jnp.asarray(nblk))
+    idx_t, d2_t = tnn.nn_stripe(torch.from_numpy(p), torch.from_numpy(q),
+                                torch.from_numpy(start), torch.from_numpy(nblk), tm)
+    live = np.repeat(nblk > 0, tn, axis=1)
+    np.testing.assert_array_equal(idx_t.numpy()[live], np.asarray(idx_j)[live])
+    np.testing.assert_allclose(d2_t.numpy()[live], np.asarray(d2_j)[live], rtol=ULP, atol=1e-6)
+    assert (idx_t[:, 5] == 0).all() and idx_t[0, 70] == 0
+    assert torch.isinf(d2_t[:, 5]).all() and torch.isinf(d2_t[0, 70])
+
+
+@pytest.mark.parametrize("mode", ["dense", "stripe"])
+def test_nan_map_point_is_never_chosen_and_its_block_still_counts(mode):
+    """The port's rule for a NaN map point (ROADMAP §3, Decisions): its pairs
+    are never chosen, and the other points of its map block still count.
+    (The TPU kernels drop the whole block, a result that depends on their
+    block size.) The expected neighbours come from numpy in float32 in the
+    kernel's order of operations."""
+    rng = np.random.default_rng(17)
+    B, N, M, tm = 2, 64, 1024, 256
+    q = rng.uniform(-30, 30, (B, M, 3)).astype(np.float32)
+    q[:, 10, 0] = np.nan  # in block 0, beside the scan points' neighbours
+    p = (q[:, 20:20 + N] + rng.normal(0, 0.01, (B, N, 3))).astype(np.float32)
+    dx, dy, dz = (p[:, :, None, c] - q[:, None, :, c] for c in range(3))
+    d = dx * dx + dy * dy + dz * dz
+    d = np.where(np.isnan(d), np.float32(np.inf), d)
+    want = d.argmin(axis=2)
+    assert (want < tm).all()  # every neighbour lies in the NaN point's block
+    pt, qt = torch.from_numpy(p), torch.from_numpy(q)
+    if mode == "dense":
+        idx, d2 = tnn.nn_argmin_plain(pt, qt)
+    else:
+        start = torch.zeros((B, 1), dtype=torch.int32)
+        idx, d2 = tnn.nn_stripe_plain(pt, qt, start, torch.full_like(start, M // tm), tm)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(d2.numpy(), np.take_along_axis(d, want[..., None], 2)[..., 0])
+
+
+def tie_heavy_case(seed, B, N, M):
+    """Scan and map points on a coarse grid (every distance exact in float32,
+    many equal), exact duplicate map points across unit boundaries, map pad
+    rows at 1000, and rows with no finite distance: a NaN scan point and
+    one whose every d2 overflows."""
+    rng = np.random.default_rng(seed)
+    p = (rng.integers(-12, 12, (B, N, 3)) * 0.5).astype(np.float32)
+    q = (rng.integers(-12, 12, (B, M, 3)) * 0.5).astype(np.float32)
+    p[..., 2] = np.where(rng.random((B, N)) < 0.5, 0.0, 0.5)
+    q[..., 2] = np.where(rng.random((B, M)) < 0.5, 0.0, 0.5)
+    q[:, M // 2:M // 2 + 40] = q[:, 7:47]
+    q[:, -9:] = 1000.0
+    p[:, 3] = np.nan
+    p[:, 4] = (1e30, 0.0, 0.0)
+    return p, q
+
+
+def unit_merge(p, q, ranges, span, chunk, rng):
+    """csrc/nn_assoc.cu's order of work, emulated in torch for the rows p
+    (R, 3) of one tile against q (M, 3): each map range [lo, hi) of
+    ``ranges`` cut into units of ``span`` points, each unit in chunks of
+    ``chunk`` (the last padded with NaN points) with the chunk minimum by
+    fmin, compared with the running best once per chunk on a strict <, and
+    the first point of the best chunk equal to it; the units' packed
+    (d2 bits << 32 | idx) merged by their minimum into an all-ones preset, in
+    a shuffled order; all ones unpacks to (0, inf). Returns (idx, d2)."""
+    keys = np.full(p.shape[0], np.iinfo(np.uint64).max, np.uint64)
+    units = [s0 for lo, hi in ranges for s0 in range(lo, hi, span)]
+    hi_of = {s0: hi for lo, hi in ranges for s0 in range(lo, hi, span)}
+    rng.shuffle(units)  # the units finish in any order
+    rows = torch.arange(p.shape[0])
+    for s0 in units:
+        n = min(span, hi_of[s0] - s0)
+        nc = -(-n // chunk)
+        d = F.pad(tnn._sq_dist(p, q[s0:s0 + n]), (0, nc * chunk - n), value=float("nan"))
+        d = d.reshape(p.shape[0], nc, chunk)
+        best = torch.full((p.shape[0],), float("inf"))
+        best_c = torch.zeros(p.shape[0], dtype=torch.int64)
+        for c in range(nc):
+            cmin = d[:, c, 0]
+            for u in range(1, chunk):
+                cmin = torch.fmin(cmin, d[:, c, u])
+            better = cmin < best
+            best, best_c = torch.where(better, cmin, best), torch.where(better, c, best_c)
+        first = torch.zeros_like(best_c)
+        for u in reversed(range(chunk)):
+            first = torch.where(d[rows, best_c, u] == best, u, first)
+        found = (best < float("inf")).numpy()
+        key = ((best.view(torch.int32).numpy().astype(np.uint64) << np.uint64(32))
+               | (s0 + best_c * chunk + first).numpy().astype(np.uint64))
+        keys[found] = np.minimum(keys[found], key[found])
+    none = keys == np.iinfo(np.uint64).max
+    idx = np.where(none, 0, keys & np.uint64(0xFFFFFFFF)).astype(np.int32)
+    d2 = np.where(none, np.inf, (keys >> np.uint64(32)).astype(np.uint32).view(np.float32))
+    return idx, d2.astype(np.float32)
+
+
+KERNEL_CHUNK = 8  # map points per chunk of the kernel's argmin: csrc/nn_assoc.cu's U
+UNIT_SHAPES = [(tnn.NN_SPAN, KERNEL_CHUNK), (tnn.NN_STRIPE_SPAN, KERNEL_CHUNK), (100, 3)]
+
+
+@pytest.mark.parametrize("span,chunk", UNIT_SHAPES)
+def test_dense_unit_merge_matches_plain_and_pallas(span, chunk):
+    """The kernel's split into units and its order-free merge, emulated in
+    torch (it checks the order of work, not the kernel), give the dense
+    plain version's idx and d2 bit for bit on tie-heavy inputs whose M is a
+    multiple of no unit, and the TPU kernel's in interpret mode."""
+    B, N, M = 2, 150, 1301
+    p, q = tie_heavy_case(18, B, N, M)
+    pt, qt = torch.from_numpy(p), torch.from_numpy(q)
+    idx_p, d2_p = tnn.nn_argmin_plain(pt, qt)
+    rng = np.random.default_rng(0)
+    for b in range(B):
+        idx, d2 = unit_merge(pt[b], qt[b], [(0, M)], span, chunk, rng)
+        np.testing.assert_array_equal(idx, idx_p[b].numpy())
+        np.testing.assert_array_equal(d2.view(np.int32), d2_p[b].numpy().view(np.int32))
+    # Every distance is exact, so XLA's contraction changes no bit here.
+    idx_j, d2_j = jnn.nn_argmin_pallas(jnp.asarray(p), jnp.asarray(q), tn=128, tm=512,
+                                       interpret=True)
+    np.testing.assert_array_equal(idx_p.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(d2_p.numpy(), np.asarray(d2_j))
+    assert (idx_p[:, 3:5] == 0).all() and torch.isinf(d2_p[:, 3:5]).all()
+
+
+@pytest.mark.parametrize("span,chunk", UNIT_SHAPES)
+def test_stripe_unit_merge_matches_plain_and_pallas(span, chunk):
+    """The same for the sorted stripe: each live tile's run of map blocks
+    cut into units, tiles with nblk = 0 searching nothing, a run that ends
+    at the map's end, and the all-infinite rows in a live tile that starts
+    past block 0."""
+    B, N, M, tn, tm = 3, 256, 2048, 64, 256
+    p, q = tie_heavy_case(19, B, N, M)
+    rng = np.random.default_rng(20)
+    start = rng.integers(0, M // tm, (B, N // tn)).astype(np.int32)
+    nblk = rng.integers(1, 4, (B, N // tn)).astype(np.int32)
+    start[:, 0], nblk[:, 0] = 2, 3  # rows 3 and 4 of every item: live, from block 2
+    start[0, 1], nblk[0, 1] = M // tm - 1, 3  # runs past the map's end
+    nblk[1, 2:] = 0
+    pt, qt = torch.from_numpy(p), torch.from_numpy(q)
+    idx_p, d2_p = tnn.nn_stripe_plain(pt, qt, torch.from_numpy(start), torch.from_numpy(nblk), tm)
+    for b in range(B):
+        for t in np.nonzero(nblk[b])[0]:
+            lo = int(start[b, t]) * tm
+            rows = slice(t * tn, (t + 1) * tn)
+            idx, d2 = unit_merge(pt[b, rows], qt[b], [(lo, min(M, lo + int(nblk[b, t]) * tm))],
+                                 span, chunk, rng)
+            np.testing.assert_array_equal(idx, idx_p[b, rows].numpy())
+            np.testing.assert_array_equal(d2.view(np.int32), d2_p[b, rows].numpy().view(np.int32))
+    idx_j, d2_j = jnn._nn_stripe_pallas(
+        jnp.pad(jnp.asarray(p), ((0, 0), (0, 0), (0, 5))), jnn.coord_major(jnp.asarray(q)),
+        jnp.asarray(start), tn=tn, tm=tm, nk=int(nblk.max()), interpret=True,
+        nblk=jnp.asarray(nblk))
+    live = np.repeat(nblk > 0, tn, axis=1)
+    np.testing.assert_array_equal(idx_p.numpy()[live], np.asarray(idx_j)[live])
+    np.testing.assert_array_equal(d2_p.numpy()[live], np.asarray(d2_j)[live])
+    assert (idx_p[:, 3:5] == 0).all() and torch.isinf(d2_p[:, 3:5]).all()
+
+
+@pytest.mark.parametrize("mode", ["dense", "stripe"])
+def test_nn_wrappers_route_both_modes_to_their_entry(monkeypatch, mode):
+    """On the card both launch modes reach mm_nn_argmin with their unit span
+    and a scratch of their own for the packed minima: dense with no block
+    arguments, NN_ROWS rows a tile and NN_SPAN map points a unit; the stripe
+    with start_blk and nblk, its tiles' rows, tm and NN_STRIPE_SPAN."""
+    calls = []
+
+    class Library:
+        @staticmethod
+        def mm_nn_argmin(*args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(tnn, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    p, q = torch.zeros((2, 640, 3)), torch.zeros((2, 3000, 3))
+    start = torch.tensor([[0, 1], [2, 0]], dtype=torch.int32)
+    nblk = torch.tensor([[1, 0], [2, 1]], dtype=torch.int32)
+    reset_launch_counts()
+    if mode == "dense":
+        idx, d2 = tnn.nn_argmin(p, q)
+        blocks, shape = (None, None), (2, 640, 3000, tnn.NN_ROWS, 3000, tnn.NN_SPAN)
+    else:
+        idx, d2 = tnn.nn_stripe(p, q, start, nblk, 1000)
+        blocks = (start.data_ptr(), nblk.data_ptr())
+        shape = (2, 640, 3000, 320, 1000, tnn.NN_STRIPE_SPAN)
+    (args,) = calls
+    assert args[0] == p.data_ptr() and args[2:4] == blocks and args[4:10] == shape
+    assert args[10:12] == (idx.data_ptr(), d2.data_ptr()) and args[13] == 7
+    assert isinstance(args[12], int) and args[12] not in (args[0], args[1], *args[10:12])
+    assert idx.shape == d2.shape == (2, 640) and idx.dtype == torch.int32
+    assert launch_counts()["nn_argmin" if mode == "dense" else "nn_stripe"] == 1
+    reset_launch_counts()
+
+
 def test_stripe_sort_target_matches_jax():
     rng = np.random.default_rng(9)
     q = np.zeros((2, 300, 6), np.float32)
