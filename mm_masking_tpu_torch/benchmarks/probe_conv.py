@@ -57,10 +57,12 @@ class Case:
     variant: str = "full"  # P2
     ndot: int = 1  # P4
     relu: bool = False  # P1, P3, P4
+    ring: bool = True  # P3 in bfloat16: False is the variant without the prefetch
 
     @property
     def label(self) -> str:
         opt = {"P2": f" {self.variant}", "P4": f" ndot{self.ndot}"}.get(self.probe, "")
+        opt += "" if self.ring else " no-ring"
         return (f"{self.probe} B{self.B} {self.H}x{self.W} {self.Ci}->{self.Co} "
                 f"TH{self.TH}{opt}{' relu' if self.relu else ''}")
 
@@ -97,16 +99,16 @@ FULL = {
     "P4": [Case("P4", TIME_BATCH, 640, 640, 16, 16, 16)],
 }
 # The probes' own timing shapes (B = 16, bf16): probe_pallas_conv.py:154-157,
-# probe_pallas_conv2.py:126-131, probe_pallas_conv3.py:121-124,
-# probe_pallas_conv4.py:151-154.
+# probe_pallas_conv2.py:126-131, probe_pallas_conv3.py:121-124 (P3's also
+# without the prefetch ring), probe_pallas_conv4.py:151-154.
 TIMES = {
     "P1": [Case("P1", TIME_BATCH, hw, hw, ci, co, th) for hw, ci, co, th in (
         (640, 8, 8, 8), (640, 8, 16, 8), (640, 16, 16, 8), (640, 16, 16, 16),
         (640, 16, 8, 8), (320, 16, 32, 8), (320, 32, 32, 8), (640, 1, 8, 8))],
     "P2": _p2([(TIME_BATCH, 640, 640, 16, 16, th) for th in (8, 16)]),
-    "P3": [Case("P3", TIME_BATCH, 640, 640, ci, co, th) for ci, co, th in (
-        (16, 16, 8), (16, 16, 16), (16, 16, 32), (8, 8, 16), (8, 16, 16), (16, 8, 16),
-        (1, 8, 16))],
+    "P3": [Case("P3", TIME_BATCH, 640, 640, ci, co, th, ring=ring) for ring in (True, False)
+           for ci, co, th in ((16, 16, 8), (16, 16, 16), (16, 16, 32), (8, 8, 16), (8, 16, 16),
+                              (16, 8, 16), (1, 8, 16))],
     "P4": [Case("P4", TIME_BATCH, 640, 640, ci, co, th, ndot=nd) for ci, co, th, nd in (
         (16, 16, 16, 1), (16, 16, 16, 3), (16, 16, 32, 1), (16, 16, 64, 1), (8, 8, 16, 1),
         (8, 16, 16, 1), (1, 8, 16, 1), (16, 8, 16, 1))],
@@ -134,8 +136,10 @@ def calls(case: Case, x: torch.Tensor, k: torch.Tensor):
         return (lambda: cp.conv3x3_nhcw_run(case.variant, xp, km, case.TH),
                 lambda: cp.conv3x3_nhcw_run_plain(case.variant, xp, km),
                 lambda y: y.transpose(1, 2))
-    fn = cp.conv3x3_nhcw if case.probe == "P1" else cp.conv3x3_nhcw_v2
-    return (lambda: fn(xn, k, case.TH, case.relu),
+    if case.probe == "P1":
+        return (lambda: cp.conv3x3_nhcw(xn, k, case.TH, case.relu),
+                lambda: cp.conv3x3_nhcw_plain(xn, k, case.relu), lambda y: y.transpose(1, 2))
+    return (lambda: cp.conv3x3_nhcw_v2(xn, k, case.TH, case.relu, case.ring),
             lambda: cp.conv3x3_nhcw_plain(xn, k, case.relu), lambda y: y.transpose(1, 2))
 
 

@@ -8,7 +8,8 @@
 // kmat (Co, 9 * Ci) f32 indexed k = (di * 3 + dj) * Ci + ci, the order of
 // benchmarks/probe_pallas_conv.py:102. The sums run in f32 on the CUDA cores
 // in that k order; bf16 inputs are widened exactly and each output is
-// rounded once to the input type.
+// rounded once to the input type. (P3's bf16 kernel, on the tensor cores,
+// uses the copies and the opt-in only: conv_probe_halo.cu.)
 #pragma once
 
 #include <cuda_bf16.h>

@@ -28,34 +28,29 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mm_masking_tpu_torch.ops.kernels.conv2d import conv3x3
+from mm_masking_tpu_torch.ops.kernels.resample import resize_axis
 
 
 def upsample_bilinear_align_corners(
     x: torch.Tensor, size: tuple[int, int], axes: tuple[int, int] = (2, 3)
 ) -> torch.Tensor:
     """Separable bilinear resize with align_corners=True: output pixel i
-    samples input coordinate ``i * (in - 1) / (out - 1)``."""
+    samples input coordinate ``i * (in - 1) / (out - 1)``. Each axis's
+    backward is the gather-form kernel of
+    :func:`mm_masking_tpu_torch.ops.kernels.resample.resize_axis` on the card."""
+    x = resize_axis(x, size[0], axes[0])
+    return resize_axis(x, size[1], axes[1])
 
-    def axis_resize(arr, in_size, out_size, axis):
-        if in_size == out_size:
-            return arr
-        if in_size == 1:
-            reps = [1] * arr.ndim
-            reps[axis] = out_size
-            return arr.repeat(*reps)
-        pos = torch.linspace(0.0, in_size - 1.0, out_size, dtype=torch.float32,
-                             device=arr.device)
-        i0 = torch.floor(pos).long().clamp(0, in_size - 2)
-        t = (pos - i0.float()).to(arr.dtype)
-        shape = [1] * arr.ndim
-        shape[axis] = out_size
-        t = t.reshape(shape)
-        a0 = arr.index_select(axis, i0)
-        a1 = arr.index_select(axis, i0 + 1)
-        return a0 * (1.0 - t) + a1 * t
 
-    x = axis_resize(x, x.shape[axes[0]], size[0], axes[0])
-    return axis_resize(x, x.shape[axes[1]], size[1], axes[1])
+def conv1x1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """1×1 conv of x (B, C, H, W) with weight (Co, C, 1, 1) and bias (Co,),
+    both rounded to x's type, as a matrix product over C (float32 sums, TF32
+    off). Not ``F.conv2d``: cuDNN's float32 weight gradient of this conv adds
+    with atomics on the card, where the gradients of the product are matrix
+    products and a sum over the batch, the same bits every run."""
+    B, C, H, W = x.shape
+    y = torch.matmul(weight.to(x.dtype)[:, :, 0, 0], x.reshape(B, C, H * W))
+    return (y + bias.to(x.dtype)[:, None]).reshape(B, -1, H, W)
 
 
 class Conv3x3(nn.Module):
@@ -178,8 +173,7 @@ class UNet(nn.Module):
             x = upsample_bilinear_align_corners(x, tuple(skip.shape[2:]))
             x = block(x, generator)
             x = block(torch.cat([skip, x], dim=1), generator)
-        x = F.conv2d(x, self.final.weight.to(self.dtype), self.final.bias.to(self.dtype))
-        return torch.sigmoid(x)[:, 0]
+        return torch.sigmoid(conv1x1(x, self.final.weight, self.final.bias))[:, 0]
 
 
 def conv3x3_shapes(enc_channels: Sequence[int] = (8, 16, 32, 64, 128, 256),
@@ -197,4 +191,20 @@ def conv3x3_shapes(enc_channels: Sequence[int] = (8, 16, 32, 64, 128, 256),
         h = skips[-1 - i]
         shapes += [(cin, feat, h), (feat, feat, h), (2 * feat, feat, h), (feat, feat, h)]
         cin = feat
+    return shapes
+
+
+def upsample_shapes(enc_channels: Sequence[int] = (8, 16, 32, 64, 128, 256),
+                    width: int = 640) -> list[tuple[int, int, int]]:
+    """(C, h, H) of the upsamples of one :class:`UNet` forward on a width ×
+    width image, in the order they run: C channels from h × h to H × H."""
+    skips, h = [], width
+    for i, _ in enumerate(enc_channels):
+        skips.append(h)
+        if i > 0:  # the block's max-pool
+            h //= 2
+    shapes, cin = [], enc_channels[-1]
+    for i, feat in enumerate(list(enc_channels)[-2::-1]):
+        shapes.append((cin, h, skips[-1 - i]))
+        h, cin = skips[-1 - i], feat
     return shapes

@@ -3,11 +3,16 @@
 Counterpart of ``mm_masking_tpu.ops.grid_sample``, which re-implements
 exactly these semantics in JAX; here the native operator is the function.
 ``grid[..., 0]`` indexes the width (x) axis, ``grid[..., 1]`` the height.
+The per-point lookup, which the train step differentiates, takes the
+image's gradient from the gather-form kernel of
+:mod:`mm_masking_tpu_torch.ops.kernels.resample` on the card.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from mm_masking_tpu_torch.ops.kernels.resample import sample_points
 
 
 def grid_sample_2d(
@@ -25,6 +30,4 @@ def grid_sample_points(
 ) -> torch.Tensor:
     """Sample a batched single-channel image (N, H, W) at per-point
     normalised coordinates (N, P, 2) → (N, P)."""
-    out = grid_sample_2d(image[:, None], coords[:, :, None, :],
-                         align_corners=align_corners)
-    return out[:, 0, :, 0]
+    return sample_points(image, coords.to(image.dtype), align_corners)

@@ -16,13 +16,15 @@ jobs count apart: ``conv3x3`` (K2, forward), ``conv3x3_dx`` (K2 as the
 backward's dx) and ``conv3x3_dk`` (K3, the weight gradient). The conv-probe
 kernels P1–P4 count as ``conv3x3_nhcw``, ``conv3x3_nhcw_run:<variant>`` (one
 counter for each of P2's five variants), ``conv3x3_nhcw_v2`` and
-``conv3x3_flat``. A graph replay counts the launches its capture recorded.
+``conv3x3_flat``. The gather-form backwards of the upsample and the point
+lookup count as ``resize_bwd`` and ``bilinear_points_bwd``. A graph replay
+counts the launches its capture recorded.
 """
 from __future__ import annotations
 
 import contextlib
 
-from mm_masking_tpu_torch.ops.kernels import _build, conv2d, conv_probes, nn_assoc
+from mm_masking_tpu_torch.ops.kernels import _build, conv2d, conv_probes, nn_assoc, resample
 from mm_masking_tpu_torch.ops.kernels._build import build, use_graphs
 
 _WRAPPERS = {
@@ -35,6 +37,8 @@ _WRAPPERS = {
     **{f"conv3x3_nhcw_run:{v}": c for v, c in conv_probes.RUN_COUNTERS.items()},
     "conv3x3_nhcw_v2": conv_probes.conv3x3_nhcw_v2,
     "conv3x3_flat": conv_probes.conv3x3_flat,
+    "resize_bwd": resample.resize_bwd,
+    "bilinear_points_bwd": resample.bilinear_points_bwd,
 }
 
 

@@ -46,12 +46,20 @@ _SIGNATURES = {
     # xp, kmat, y, B, H, Ci, Co, W, TH, Wt, variant, relu, vec, stream
     "mm_probe_nhcw_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     "mm_probe_nhcw_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
-    # x, kmat, y, B, H, Ci, Co, W, TH, Wt, G, relu, vec, stream
+    # x, kmat, y, B, H, Ci, Co, W, TH, Wt, G, relu, vec, stream (f32); x,
+    # packed bf16 weights, y, …, vec, ring, stream (bf16)
     "mm_probe_halo_f32": [_P, _P, _P] + [_I] * 10 + [_P],
-    "mm_probe_halo_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    "mm_probe_halo_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
     # x, kmat, y, B, Ci, Co, H, W, TH, Lc, ndot, relu, vec, stream
     "mm_probe_flat_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     "mm_probe_flat_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    # dy, w0, w1, off, dx, outer, n_in, n_out, inner, stream (resize_bwd.cu)
+    "mm_resize_bwd_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "mm_resize_bwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # dout, coords, dimage, N, P, H, W, align_corners, stream
+    # (bilinear_points_bwd.cu)
+    "mm_bilinear_points_bwd_f32": [_P] * 3 + [_I] * 5 + [_P],
+    "mm_bilinear_points_bwd_bf16": [_P] * 3 + [_I] * 5 + [_P],
 }
 # Host-side functions of the sources: name → (argument types, result type).
 _HOST = {

@@ -68,14 +68,14 @@ def ci_tile(ci: int) -> int:
     return 1 if ci == 1 else 8 if ci <= 8 else 16
 
 
-def pack_weight_bf16(weight: torch.Tensor) -> torch.Tensor:
+def pack_weight_bf16(weight: torch.Tensor, t: int | None = None) -> torch.Tensor:
     """(Co, Ci, 3, 3) → bfloat16 (n_chunks, 9, Cop, t), the bfloat16 kernel's
-    weights: t = ci_tile(Ci), n_chunks = ⌈Ci / t⌉, Cop = Co rounded up to 8;
-    element [c, 3·kh + kw, co, k] is weight[co, c·t + k, kh, kw], zero past Ci
-    and Co. One chunk's taps are contiguous, and each (tap, co) row of t
-    input channels loads as 16-byte vectors."""
+    weights: t = ci_tile(Ci) unless given, n_chunks = ⌈Ci / t⌉, Cop = Co
+    rounded up to 8; element [c, 3·kh + kw, co, k] is weight[co, c·t + k, kh,
+    kw], zero past Ci and Co. One chunk's taps are contiguous, and each (tap,
+    co) row of t input channels loads as 16-byte vectors."""
     Co, Ci = weight.shape[:2]
-    t = ci_tile(Ci)
+    t = t or ci_tile(Ci)
     cip = -(-Ci // t) * t
     w = weight.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, Co, Ci)
     w = F.pad(w, (0, cip - Ci, 0, -Co % 8))

@@ -10,7 +10,8 @@ a CUDA kernel here:
   im2col stack, one contraction per row;
 - P3 :func:`conv3x3_nhcw_v2` (``probe_pallas_conv3.py:80``) →
   ``csrc/conv_probe_halo.cu``: the same, the next tile's halo prefetched
-  through a two-stage ring;
+  through a two-stage ring; in bfloat16 an implicit GEMM on the tensor
+  cores over that halo, with no im2col stack;
 - P4 :func:`conv3x3_flat` (``probe_pallas_conv4.py:104``) →
   ``csrc/conv_probe_flat.cu``: the taps as lane shifts of a flat NCHW slab.
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from mm_masking_tpu_torch.ops.kernels._build import SMEM_LIMIT, launch, library, use_kernel
+from mm_masking_tpu_torch.ops.kernels.conv2d import pack_weight_bf16
 
 # P2's variants, in the order of the Variant enum of csrc/conv_probe_nhcw.cu.
 VARIANTS = ("full", "asm-only", "dot-only", "row2", "tap-dots")
@@ -205,22 +207,38 @@ def conv3x3_nhcw_run(variant: str, x_padded: torch.Tensor, kmat: torch.Tensor,
 
 
 def conv3x3_nhcw_v2(x: torch.Tensor, k: torch.Tensor, TH: int = 16,
-                    relu: bool = False) -> torch.Tensor:
+                    relu: bool = False, ring: bool = True) -> torch.Tensor:
     """P3: P1's function, x (B, H, Ci, W), k (3, 3, Ci, Co) → (B, H, Co, W);
-    each block walks several row tiles and prefetches the next one's halo."""
+    each block walks several row tiles and, with ``ring``, prefetches the
+    next one's halo. A bfloat16 x runs the tensor-core kernel and takes a
+    bfloat16 k only (ValueError otherwise: the kernel's products are of
+    bfloat16 values, and a float32 k would be rounded); ``ring=False``, its
+    variant without the prefetch, exists for bfloat16 only."""
     B, H, Ci, W = x.shape
     _check_hwio(k, Ci)
     _check_rows(H, TH)
     if not use_kernel(x, k):
         return conv3x3_nhcw_plain(x, k, relu)
+    if x.dtype == torch.bfloat16 and k.dtype != torch.bfloat16:
+        raise ValueError(f"conv probe v2: the bfloat16 kernel takes a bfloat16 k, got {k.dtype} "
+                         f"(it would be rounded to bfloat16)")
+    if x.dtype != torch.bfloat16 and not ring:
+        raise ValueError("conv probe v2: ring=False exists for the bfloat16 kernel only")
     x, km, vec = _kernel_inputs(x, kmat_from_hwio(k))
     Co, e = km.shape[0], x.element_size()
     wt = _w_tile(W, lambda t: library().mm_probe_halo_smem_bytes(Ci, Co, TH, t, e),
                  f"conv probe v2 Ci={Ci} Co={Co} TH={TH} {x.dtype}")
-    G = tiles_per_block(H // TH, B * -(-W // wt))
     y = torch.empty((B, H, Co, W), dtype=x.dtype, device=x.device)
-    launch(f"mm_probe_halo_{_SUFFIX[x.dtype]}", x.device, x.data_ptr(), km.data_ptr(),
-           y.data_ptr(), B, H, Ci, Co, W, TH, wt, G, int(relu), vec)
+    if x.dtype == torch.bfloat16:
+        co_groups = -(-Co // 64)
+        G = tiles_per_block(H // TH, B * co_groups * -(-W // wt))
+        w = pack_weight_bf16(k.permute(3, 2, 0, 1), t=16)
+        launch("mm_probe_halo_bf16", x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H,
+               Ci, Co, W, TH, wt, G, int(relu), vec, int(ring))
+    else:
+        G = tiles_per_block(H // TH, B * -(-W // wt))
+        launch("mm_probe_halo_f32", x.device, x.data_ptr(), km.data_ptr(), y.data_ptr(), B, H,
+               Ci, Co, W, TH, wt, G, int(relu), vec)
     conv3x3_nhcw_v2.launches += 1
     return y
 

@@ -53,6 +53,9 @@ GROUPS = (
     ("conv3x3_mma_bf16", "conv3x3 (K2 forward + dx)"),
     ("conv3x3_dk", "conv3x3_dk (K3)"),
     ("nn_argmin", "nn_argmin (K4 / K1)"),
+    ("resize_bwd", "resize_bwd (upsample backward)"),
+    ("bilinear_points_bwd", "bilinear_points_bwd (lookup backward)"),
+    ("grid_sampler_2d_backward", "grid_sampler_2d_backward"),
     ("indexfunc", "index_add / index_select"),
     ("max_pool", "max-pool"),
     ("gemm", "GEMM/GEMV"),

@@ -8,14 +8,25 @@ imports JAX, so run it with::
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from mm_masking_tpu_torch.benchmarks.probe_conv import CHECKS, FULL, Case, check
+from mm_masking_tpu_torch.benchmarks.probe_conv import (
+    CHECKS,
+    FULL,
+    TIMES,
+    Case,
+    calls,
+    check,
+    inputs,
+)
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
-from mm_masking_tpu_torch.models.unet import conv3x3_shapes
+from mm_masking_tpu_torch.models.unet import conv3x3_shapes, upsample_shapes
 from mm_masking_tpu_torch.ops.kernels import (
     eager,
     launch_counts,
@@ -24,6 +35,7 @@ from mm_masking_tpu_torch.ops.kernels import (
 )
 from mm_masking_tpu_torch.ops.kernels import conv2d as tconv
 from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
+from mm_masking_tpu_torch.ops.kernels import resample
 from mm_masking_tpu_torch.ops.kernels._build import library
 from mm_masking_tpu_torch.ops.kernels.conv_probes import (
     LANE_CHUNKS,
@@ -483,9 +495,9 @@ def test_train_step_graph_replays_match_eager_steps(cuda):
     the same seed, each from the state the replay started from: loss and
     grad_norm within 1e-6 relative, the parameters within 1e-5 of the
     largest |p|, and the dropout generator advanced alike. (Each step starts
-    the eager state from the graph's, so that the atomics of the backward's
-    sums, which differ between any two runs, do not accumulate.) The
-    capture's warm-up leaves the state as it was."""
+    the eager state from the graph's, so that a difference shows at the step
+    that makes it; test_train_step_chains_are_bitwise_repeatable holds
+    chains.) The capture's warm-up leaves the state as it was."""
     trainer, spec = small_trainer(cuda, max_iter=3, dropout=0.05)
     batch = synthetic_batch(6, 4, spec, device=cuda)
     graph_state, eager_state = trainer.init_state(3), trainer.init_state(3)
@@ -578,6 +590,13 @@ def test_probe_tiles_fit_the_shared_memory(cuda):
     assert SMEM_TWO < nhcw(0, 32, 32, 8, 16, 4) <= SMEM_LIMIT
     # P3 at TH 32 in f32 with its two ring slots: only 8 columns fit.
     assert pick_size(W_TILES, lambda t: halo(16, 16, 32, t, 4), "x") == 8
+    # P3 in bf16 (the tensor cores' halo, output tile and two slab slots):
+    # whole m-tiles of 16 columns only, two blocks an SM up to TH 16.
+    assert halo(16, 16, 16, 8, 2) == 2**64 - 1
+    assert pick_size(W_TILES, lambda t: halo(16, 16, 8, t, 2), "x") == 64
+    assert pick_size(W_TILES, lambda t: halo(16, 16, 16, t, 2), "x") == 32
+    assert pick_size(W_TILES, lambda t: halo(16, 16, 32, t, 2), "x") == 32
+    assert SMEM_TWO < halo(16, 16, 32, 32, 2) <= SMEM_LIMIT
     flat = lib.mm_probe_flat_smem_bytes
     assert pick_size(LANE_CHUNKS, lambda c: flat(16, 16, 640, c, 2), "x") == 1024
     # tap-dots builds no im2col stack, so it takes a wider tile than full.
@@ -597,3 +616,172 @@ def test_conv_probe_kernels_match_plain(cuda, case, dtype):
     torch.cuda.synchronize()
     name = COUNTER.get(case.probe, f"conv3x3_nhcw_run:{case.variant}")
     assert launch_counts()[name] == 1
+
+
+# Every decoder upsample of the default Config() at B = 16, each axis as the
+# backward meets it (W first, then H), and odd shapes: an axis of size 1 (the
+# repeat), a shrinking axis, sizes that are no multiple of anything.
+RESIZE_CASES = ([(16, c, H, H, h, 3) for c, h, H in upsample_shapes()]
+                + [(16, c, H, h, h, 2) for c, h, H in upsample_shapes()]
+                + [(2, 3, 9, 13, 1, 3), (2, 3, 9, 13, 1, 2), (2, 5, 7, 33, 17, 3),
+                   (3, 4, 11, 6, 4, 2)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,W,n_in,axis", RESIZE_CASES)
+def test_resize_bwd_kernel_matches_plain(cuda, B, C, H, W, n_in, axis, dtype):
+    """The upsample's backward kernel on dy (B, C, H, W) resized from n_in
+    rows along ``axis``: two runs bit for bit; against its plain version
+    (index_add, atomics) within 1e-6 of max |dx| in float32 (the same
+    float32 products summed in another order) and 2e-2 in bfloat16 (the
+    plain version rounds each product and partial sum to 8 bits, as the
+    conv kernels' bfloat16 limit allows); in bfloat16 also elementwise
+    against a float64 sum within 2^-8 |dx64| + 1e-5 max |dx64| (one
+    rounding of a float32 sum)."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    dy = torch.randn(B, C, H, W, generator=g, device=cuda).to(dtype)
+    i0, w0, w1 = resample.resize_tables(n_in, dy.shape[axis], dtype, cuda)
+    reset_launch_counts()
+    got = resample.resize_bwd(dy, i0, w0, w1, n_in, axis)
+    again = resample.resize_bwd(dy, i0, w0, w1, n_in, axis)
+    assert launch_counts()["resize_bwd"] == 2
+    with plain_versions():
+        want = resample.resize_bwd(dy, i0, w0, w1, n_in, axis)
+        ref = resample.resize_bwd(dy.double(), i0, w0.double(), w1.double(), n_in, axis)
+    assert got.dtype == dtype and got.shape == want.shape and torch.equal(got, again)
+    assert rel_err(got, want) <= (1e-6 if dtype == torch.float32 else 2e-2)
+    if dtype == torch.bfloat16:
+        limit = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+        assert ((got.double() - ref).abs() <= limit).all()
+
+
+def lookup_case(cuda, N, H, W, P, dtype, seed=32):
+    """An image (N, H, W) and P points a lookup takes on it: normalised
+    coordinates inside and around the image, 64 pad points at (-100, -100),
+    points 64..127 copies of 0..63 (their taps coincide); and a cotangent."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    image = torch.rand(N, H, W, generator=g, device=cuda).to(dtype)
+    coords = torch.rand(N, P, 2, generator=g, device=cuda) * 2.2 - 1.1
+    coords[:, 64:128] = coords[:, 0:64]
+    coords[:, -64:] = -100.0
+    dout = torch.randn(N, P, generator=g, device=cuda)
+    return image, coords.to(dtype), dout.to(dtype)
+
+
+def lookup_grad64(dout, image, coords):
+    """The lookup's image gradient in float64 from the kernel's own float32
+    pixel coordinates (ATen's unnormalisation, align_corners) and tap
+    weights, which are exact in float32: so that it differs from the kernel
+    only by the kernel's float32 sums and rounding."""
+    N, H, W = image.shape
+    ix = (coords[..., 0].float() + 1.0) * 0.5 * (W - 1)
+    iy = (coords[..., 1].float() + 1.0) * 0.5 * (H - 1)
+    x0, y0 = ix.floor(), iy.floor()
+    grad = torch.zeros(N * H * W, dtype=torch.float64, device=image.device)
+    item = torch.arange(N, device=image.device)[:, None] * (H * W)
+    for a in (0, 1):
+        for b in (0, 1):
+            wx = ix - x0 if a else x0 + 1.0 - ix
+            wy = iy - y0 if b else y0 + 1.0 - iy
+            c, r = x0 + a, y0 + b
+            ok = (c >= 0) & (c < W) & (r >= 0) & (r < H)
+            flat = item + (r.clamp(0, H - 1) * W + c.clamp(0, W - 1)).long()
+            grad.index_add_(0, flat[ok], (wx.double() * wy.double() * dout.double())[ok])
+    return grad.view(N, H, W)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,P", [(16, 640, 640, 4096), (3, 70, 130, 300)])
+def test_bilinear_points_bwd_kernel_matches_plain(cuda, N, H, W, P, dtype):
+    """The lookup's image-gradient kernel at the train step's shape (B = 16,
+    640^2, 4096 points) and a ragged one: two runs bit for bit; against its
+    plain version (grid_sampler_2d_backward, atomics) within 1e-6 of max |g|
+    in float32 and 2e-2 in bfloat16 (the plain version sums in bfloat16);
+    in bfloat16 also elementwise against the plain version in float64 on the
+    same values within 2^-8 |g64| + 1e-5 max |g64|."""
+    image, coords, dout = lookup_case(cuda, N, H, W, P, dtype)
+    reset_launch_counts()
+    got = resample.bilinear_points_bwd(dout, image, coords)
+    again = resample.bilinear_points_bwd(dout, image, coords)
+    assert launch_counts()["bilinear_points_bwd"] == 2
+    with plain_versions():
+        want = resample.bilinear_points_bwd(dout, image, coords)
+    ref = lookup_grad64(dout, image, coords)
+    assert got.dtype == dtype and got.shape == image.shape and torch.equal(got, again)
+    assert rel_err(got, want) <= (1e-6 if dtype == torch.float32 else 2e-2)
+    if dtype == torch.bfloat16:
+        limit = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+        assert ((got.double() - ref).abs() <= limit).all()
+
+
+def train_chain(trainer, batch, state, steps=3):
+    """``steps`` train steps from ``state``: every tensor a step updates
+    (parameters, Adam moments, counters), each step's loss and grad_norm,
+    and the dropout generator's state."""
+    out = []
+    for _ in range(steps):
+        _, loss, _, gnorm = trainer.train_step(state, batch)
+        out += [loss, gnorm]
+    torch.cuda.synchronize()
+    return [t.detach().clone() for t in state.opt.tensors()] + out + [
+        state.generator.get_state()]
+
+
+@pytest.mark.parametrize("path", ["graph", "eager"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_chains_are_bitwise_repeatable(cuda, dtype, path):
+    """Two chains of 3 train steps from one seed (dropout on), replayed from
+    their CUDA graphs or run eagerly on the kernels, end in the same bits:
+    parameters, Adam moments and counters, every loss and grad_norm, the
+    dropout generator."""
+    trainer, spec = small_trainer(cuda, max_iter=3, dropout=0.05, dtype=dtype)
+    batch = synthetic_batch(9, 4, spec, device=cuda)
+    with eager() if path == "eager" else contextlib.nullcontext():
+        a, b = (train_chain(trainer, batch, trainer.init_state(6)) for _ in range(2))
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resumed_train_step_is_bitwise_equal(cuda, tmp_path, dtype):
+    """A state saved after one step and restored into a fresh state gives
+    the same next step, bit for bit, as the uninterrupted run (each replayed
+    from its own CUDA graph)."""
+    trainer, spec = small_trainer(cuda, max_iter=3, dropout=0.05, dtype=dtype)
+    trainer = Trainer(dataclasses.replace(trainer.cfg, train=dataclasses.replace(
+        trainer.cfg.train, checkpoint_dir=str(tmp_path))), cuda)
+    batch = synthetic_batch(10, 4, spec, device=cuda)
+    state = trainer.init_state(7)
+    trainer.train_step(state, batch)
+    trainer.save(state, "step_1")
+    want = train_chain(trainer, batch, state, steps=1)
+    resumed = trainer.restore(trainer.init_state(8), "step_1")
+    got = train_chain(trainer, batch, resumed, steps=1)
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert torch.equal(x, y), i
+
+
+# P3's bfloat16 kernel at every timing shape (with and without the ring) and
+# check shape, and at shapes past the probes': a ragged W with Ci 3 and Co 5,
+# and Ci 40 (three chunks of 16) with Co 72 (two channel groups) under ReLU.
+P3_BF16 = (TIMES["P3"] + CHECKS["P3"]
+           + [Case("P3", 2, 40, 130, 3, 5, 8), Case("P3", 1, 16, 64, 40, 72, 8, relu=True)])
+
+
+@pytest.mark.parametrize("case", P3_BF16, ids=lambda c: c.label.replace(" ", "-"))
+def test_p3_bf16_matches_plain_and_float64(cuda, case):
+    """P3's bfloat16 tensor-core kernel against its plain version within
+    1e-2 of max |y| (one rounding of the output to 8 bits), and elementwise
+    against a float64 conv of the same bf16 values within 2^-8 |y64| +
+    1e-5 max |y64|, as K2's bfloat16 kernel is held."""
+    x, k = inputs(case, torch.bfloat16, cuda)
+    run, plain, to_nchw = calls(case, x, k)
+    reset_launch_counts()
+    got = run()
+    assert launch_counts()["conv3x3_nhcw_v2"] == 1
+    assert rel_err(got, plain()) <= 1e-2
+    ref = torch.nn.functional.conv2d(x.double(), k.permute(3, 2, 0, 1).double(), padding=1)
+    ref = torch.relu(ref) if case.relu else ref
+    limit = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
+    assert ((to_nchw(got).double() - ref).abs() <= limit).all()

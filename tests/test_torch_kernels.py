@@ -785,7 +785,8 @@ def test_stripe_dispatcher_matches_dense_within_trim(refresh):
     counts = launch_counts()  # CPU: no kernel runs
     assert set(counts) == {"conv3x3", "conv3x3_dx", "conv3x3_dk", "nn_stripe", "nn_argmin",
                            "conv3x3_nhcw", "conv3x3_nhcw_v2", "conv3x3_flat",
-                           *(f"conv3x3_nhcw_run:{v}" for v in VARIANTS)}
+                           *(f"conv3x3_nhcw_run:{v}" for v in VARIANTS), "resize_bwd",
+                           "bilinear_points_bwd"}
     assert not any(counts.values())
     idx_d, d2_d = tnn.nn_argmin(p, q_s)
     near = d2_d < trim ** 2

@@ -13,7 +13,16 @@ from mm_masking_tpu.models.policy import LearnICPWeightPolicy as JPolicy
 from mm_masking_tpu.models.unet import UNet as JUNet, upsample_bilinear_align_corners as jup
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.models import LearnICPWeightPolicy, UNet, params_from_flax
-from mm_masking_tpu_torch.models.unet import conv3x3_shapes, upsample_bilinear_align_corners
+from mm_masking_tpu_torch.models.unet import (
+    conv3x3_shapes,
+    upsample_bilinear_align_corners,
+    upsample_shapes,
+)
+from mm_masking_tpu_torch.ops.kernels.resample import (
+    resize_bwd_plain,
+    resize_offsets,
+    resize_tables,
+)
 
 ATOL = 1e-5
 
@@ -104,3 +113,79 @@ def test_conv3x3_shapes_are_the_unets(enc, H, monkeypatch):
     with torch.no_grad():
         net(torch.rand(1, 1, H, H))
     assert seen == conv3x3_shapes(enc, H)
+
+
+@pytest.mark.parametrize("enc,H", [((8, 16, 32), 32), ((4, 8, 16, 32), 48)])
+def test_upsample_shapes_are_the_unets(enc, H, monkeypatch):
+    """upsample_shapes lists the (C, h, H) of every upsample a forward runs,
+    in order: the shapes the resize backward kernel is checked and timed at."""
+    import mm_masking_tpu_torch.models.unet as unet_module
+
+    seen, real = [], unet_module.upsample_bilinear_align_corners
+
+    def spy(x, size, axes=(2, 3)):
+        assert x.shape[2] == x.shape[3] and size[0] == size[1]
+        seen.append((x.shape[1], x.shape[2], size[0]))
+        return real(x, size, axes)
+
+    monkeypatch.setattr(unet_module, "upsample_bilinear_align_corners", spy)
+    net = UNet(1, enc, dropout=0.0)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net(torch.rand(1, 1, H, H))
+    assert seen == upsample_shapes(enc, H)
+
+
+# (x shape, output size): the UNet's 2x upsample, odd sizes, an axis of size 1
+# (the repeat) on either side, and a shrinking axis.
+UPSAMPLE_CASES = [((1, 2, 20, 20), (40, 40)), ((2, 3, 5, 7), (9, 13)),
+                  ((2, 3, 1, 7), (9, 13)), ((2, 3, 5, 1), (4, 6))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,size", UPSAMPLE_CASES)
+def test_upsample_gradient_matches_jax(shape, size, dtype):
+    """The port's autograd of the upsample (on the CPU the gather-form
+    backward's plain version, index_add) against jax.vjp of the JAX
+    upsample, on the same numpy x and cotangent. Limits: float32 within 1e-6
+    of max |g| (the same products summed in another order); bfloat16 within
+    1e-2 of max |g| (both round each product and partial sum to 8 bits, in
+    other orders)."""
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(shape).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    y, vjp = jax.vjp(lambda a: jup(a, size, axes=(2, 3)), jnp.asarray(x).astype(jdt))
+    cot = rng.standard_normal(y.shape).astype(np.float32)
+    (want,) = vjp(jnp.asarray(cot).astype(jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    yt = upsample_bilinear_align_corners(xt, size)
+    (got,) = torch.autograd.grad(yt, xt, torch.from_numpy(cot).to(tdt))
+    assert got.dtype == tdt and got.shape == xt.shape
+    want = np.asarray(want.astype(jnp.float32))
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_in,n_out", [(5, 9), (20, 40), (320, 640), (7, 3), (1, 6)])
+def test_resize_offsets_give_each_rows_ascending_runs(n_in, n_out):
+    """The resize backward kernel's order, emulated: input row j sums dy over
+    the output rows [off[j - 1], off[j]) with w1, then [off[j], off[j + 1])
+    with w0, each product and partial sum rounded to float32. Its runs are
+    exactly the rows that read j, and the sums agree with the plain version
+    (index_add) within 1e-6 of max |dx|."""
+    i0, w0, w1 = resize_tables(n_in, n_out, torch.float32, torch.device("cpu"))
+    off = resize_offsets(i0, n_in)
+    assert off.dtype == torch.int32 and off.tolist() == [int((i0 < j).sum())
+                                                         for j in range(n_in + 1)]
+    dy = torch.from_numpy(np.random.default_rng(22).standard_normal((3, n_out)).astype(
+        np.float32))
+    dx = torch.zeros(3, n_in)
+    for j in range(n_in):
+        runs = ([(i, w1) for i in range(off[j - 1], off[j])] if j else []) + [
+            (i, w0) for i in range(off[j], off[j + 1])]
+        assert sorted({i for i, _ in runs}) == [i for i in range(n_out) if i0[i] == j or (
+            n_in > 1 and i0[i] + 1 == j)]
+        for i, w in runs:
+            dx[:, j] += dy[:, i] * w[i]
+    want = resize_bwd_plain(dy, i0, w0, w1, n_in, 1)
+    assert (dx - want).abs().max() <= 1e-6 * want.abs().max()

@@ -18,6 +18,7 @@ from mm_masking_tpu import ops as jops
 from mm_masking_tpu_torch import config as tcfg
 from mm_masking_tpu_torch import geom as tgeom
 from mm_masking_tpu_torch import ops as tops
+from mm_masking_tpu_torch.models.unet import upsample_bilinear_align_corners
 
 ATOL = 1e-5
 
@@ -155,3 +156,94 @@ def test_config_from_dict_loads_jax_config_json():
     assert dataclasses.asdict(port) == dataclasses.asdict(jcfg.Config.from_dict(d))
     assert port.model.torch_dtype == torch.bfloat16
     assert dataclasses.asdict(tcfg.Config()) == dataclasses.asdict(jcfg.Config())
+
+
+def lookup_inputs(rng, dtype: str):
+    """Image (2, H, W) and normalised points (2, 48, 2) for the lookup's
+    gradient: points inside and around the image, 6 pad points at
+    (-100, -100), points 16..23 exact copies of 0..7 (every tap coincides)
+    and 24..31 moved within the cells of 0..7 (the same pixels, other
+    weights). float32: uniform coordinates on a 13 x 19 image. bfloat16: a
+    17 x 17 image and pixel coordinates on a grid of 1/8 pixel, which
+    bfloat16 and the unnormalisation hold exactly in both packages, so that
+    the test compares the backward's sums and not the rounding of the
+    coordinates."""
+    if dtype == "float32":
+        H, W = 13, 19
+        pts = rng.uniform(-1.2, 1.2, (2, 48, 2))
+        pts[:, 24:32] = pts[:, 0:8] + 0.3 / np.array([W - 1, H - 1])
+    else:
+        H = W = 17
+        pts = rng.integers(-12, 8 * 16 + 12, (2, 48, 2)) / 64.0 - 1.0
+        pts[:, 24:32] = pts[:, 0:8] + 1 / 64
+    pts[:, 16:24] = pts[:, 0:8]
+    pts[:, -6:] = -100.0
+    img = rng.random((2, H, W))
+    return img.astype(np.float32), pts.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_sample_points_gradient_matches_jax(dtype):
+    """The port's autograd of the point lookup (on the CPU the gather-form
+    backward's plain version, grid_sampler_2d_backward) against jax.vjp of
+    the JAX lookup with respect to the image, on the same numpy inputs.
+    Limits: float32 within 1e-6 of max |g| (the same products summed in
+    another order); bfloat16 within 1e-2 of max |g| (both round each product
+    and partial sum to 8 bits, in other orders). Pad points contribute
+    nothing on either side."""
+    rng = np.random.default_rng(23)
+    img, pts = lookup_inputs(rng, dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    cot = rng.standard_normal(pts.shape[:2]).astype(np.float32)
+    cot_pad = cot.copy()
+    cot_pad[:, -6:] = 0.0
+    coords_j = jnp.asarray(pts).astype(jdt)
+    grads = []
+    for c in (cot, cot_pad):
+        _, vjp = jax.vjp(lambda im: jops.grid_sample_points(im, coords_j, align_corners=True),
+                         jnp.asarray(img).astype(jdt))
+        grads.append(np.asarray(vjp(jnp.asarray(c).astype(jdt))[0].astype(jnp.float32)))
+    want, want_pad = grads
+    np.testing.assert_array_equal(want, want_pad)  # the pad points reach no pixel
+    it = torch.from_numpy(img).to(tdt).requires_grad_(True)
+    out = tops.grid_sample_points(it, torch.from_numpy(pts).to(tdt), align_corners=True)
+    (got,) = torch.autograd.grad(out, it, torch.from_numpy(cot).to(tdt))
+    assert got.dtype == tdt and got.shape == it.shape
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    assert np.abs(got.float().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+def test_gather_backward_plain_versions_are_bitwise_repeatable():
+    """Two backward runs of the upsample and of the point lookup on the CPU
+    (the kernels' plain versions) give the same bits."""
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 10, 12)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2, 3, 20, 24)).astype(np.float32))
+    img, pts = lookup_inputs(rng, "float32")
+    img_t, pts_t = torch.from_numpy(img), torch.from_numpy(pts)
+    cot_p = torch.from_numpy(rng.standard_normal(pts.shape[:2]).astype(np.float32))
+
+    def grads():
+        xr, ir = x.clone().requires_grad_(True), img_t.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(upsample_bilinear_align_corners(xr, (20, 24)), xr, cot)
+        (gi,) = torch.autograd.grad(tops.grid_sample_points(ir, pts_t), ir, cot_p)
+        return gx, gi
+
+    for a, b in zip(grads(), grads()):
+        assert torch.equal(a, b)
+
+
+def test_grid_sample_points_gives_the_coordinates_gradient():
+    """The lookup's Function returns the coordinates' gradient (per point,
+    ATen's own) where they require one, equal to F.grid_sample's."""
+    rng = np.random.default_rng(25)
+    img, pts = lookup_inputs(rng, "float32")
+    img_t = torch.from_numpy(img)
+    cot = torch.from_numpy(rng.standard_normal(pts.shape[:2]).astype(np.float32))
+    c1 = torch.from_numpy(pts).requires_grad_(True)
+    (got,) = torch.autograd.grad(tops.grid_sample_points(img_t, c1), c1, cot)
+    c2 = torch.from_numpy(pts).requires_grad_(True)
+    ref = torch.nn.functional.grid_sample(img_t[:, None], c2[:, :, None, :],
+                                          align_corners=True)[:, 0, :, 0]
+    (want,) = torch.autograd.grad(ref, c2, cot)
+    assert torch.equal(got, want)

@@ -170,6 +170,40 @@ def test_probes_refuse_what_the_probes_refuse():
         cp.conv3x3_nhcw(x, k[:, :, :3], TH=4)
 
 
+def test_p3_bf16_refuses_a_float32_k(monkeypatch):
+    """P3's bfloat16 kernel multiplies bfloat16 values: a bfloat16 x with a
+    float32 k (which the probe promotes to a float32 product) is refused
+    before anything is built or launched, rather than rounded; ring=False
+    exists for the bfloat16 kernel only."""
+    monkeypatch.setattr(cp, "use_kernel", lambda *t: True)  # the card's branch
+
+    def no_library():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(cp, "library", no_library)
+    x = torch.zeros(1, 16, 4, 32)
+    k = torch.zeros(3, 3, 4, 8)
+    with pytest.raises(ValueError, match="bfloat16 k"):
+        cp.conv3x3_nhcw_v2(x.bfloat16(), k, TH=8)
+    with pytest.raises(ValueError, match="ring=False"):
+        cp.conv3x3_nhcw_v2(x, k, TH=8, ring=False)
+
+
+@pytest.mark.parametrize("ci,co", [(3, 5), (16, 16), (20, 12)])
+def test_p3_bf16_weight_packing(ci, co):
+    """The packing P3's bfloat16 kernel reads: chunks of 16 input channels,
+    element [c, 3·di + dj, o, j] = k[di, dj, 16·c + j, o], zero past Ci and
+    Co (Co rounded up to 8)."""
+    _, k = data(7, 1, 8, 8, ci, co)
+    kt = torch.from_numpy(k).bfloat16()
+    packed = cp.pack_weight_bf16(kt.permute(3, 2, 0, 1), t=16)
+    n = -(-ci // 16)
+    assert packed.dtype == torch.bfloat16 and packed.shape == (n, 9, -(-co // 8) * 8, 16)
+    want = torch.zeros(n * 16, 9, packed.shape[2], dtype=torch.bfloat16)
+    want[:ci, :, :co] = kt.reshape(9, ci, co).transpose(0, 1)
+    assert torch.equal(packed, want.reshape(n, 16, 9, -1).permute(0, 2, 3, 1))
+
+
 def test_tiles_fit_the_shared_memory():
     """The host's tile choice, on stand-in block sizes (the CUDA sources
     report the real ones; ``test_torch_gpu.py`` holds those): the widest
