@@ -2,11 +2,15 @@
 """Drive the PyTorch/CUDA port's eval and train paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 - --time-nn < path/to/chip_smoke.py   # from another tree's root
+    python3 - --time-nn < path/to/chip_smoke.py       # from another tree's root
+    python3 - --time-lookup < path/to/chip_smoke.py   # likewise
 
 ``--time-nn`` only builds that tree's kernels and times its K1 and K4 on this
 script's inputs, as phase 3 does, through the wrappers' public names: a
-parent commit's kernels timed the same way as this one's.
+parent commit's kernels timed the same way as this one's. ``--time-lookup``
+does the same for the point lookup's backward (``bilinear_points_bwd``) on
+the inputs of one eager train step of each type, as phase 3 times it, and
+profiles the float32 call kernel by kernel beside ``grid_sampler_2d_backward``.
 
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
@@ -16,8 +20,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            one process per source; prints ptxas's registers and spills and
            the count of HMMA (tensor-core) instructions in the SASS of each
            instantiation of the conv kernels and of the dk kernels (float32
-           and bfloat16 each) and of P3's bfloat16 probe kernel, and fails
-           if one has none.
+           and bfloat16 each) and of P3's and P1's bfloat16 probe kernels,
+           and fails if one has none.
 3. kernels each CUDA kernel against its plain PyTorch version at the
            path's shapes: the 3x3 conv's forward, dx and dk at every UNet
            stage (f32 and bf16 at B = 4 and at the train step's B = 16;
@@ -41,7 +45,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            default Config() and of its bfloat16 variant gives them: each
            call against its plain version (1e-6 of max |g| in float32, 2e-2
            in bfloat16, where the upsample's is also held elementwise against
-           a float64 sum) and bitwise across two runs, then one step's calls
+           a float64 sum) and bitwise across two runs (the point lookup's
+           also bit for bit its ordered reference), then one step's calls
            timed, replayed, beside the plain version and the library call
            (``index_add_``; ``grid_sampler_2d_backward``).
 4. slice   ``Trainer.eval_step`` at the default ``Config()`` (full-width UNet,
@@ -239,9 +244,10 @@ def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
 
 
 # The tensor-core kernels, by a fragment of their SASS names: K2's float32
-# and bfloat16 convs, K3's float32 and bfloat16 dk, and P3's bfloat16 probe.
+# and bfloat16 convs, K3's float32 and bfloat16 dk, and P3's and P1's
+# bfloat16 probes.
 TENSOR_CORE_KERNELS = ("conv3x3_tf32x3_kernel", "conv3x3_mma_bf16", "conv3x3_dk_mma_tf32x3",
-                       "conv3x3_dk_mma_bf16", "probe_halo_mma_bf16")
+                       "conv3x3_dk_mma_bf16", "probe_halo_mma_bf16", "probe_nhcw_mma_bf16")
 
 
 def check_hmma(lib) -> None:
@@ -692,7 +698,9 @@ def check_backward_kernels(calls, label: str) -> dict[str, float]:
     or 2e-2 in bfloat16 (the plain versions round each product and partial
     sum to 8 bits); a bfloat16 upsample backward also elementwise against
     its plain version in float64 within 2^-8 |g64| + 1e-5 max |g64| (one
-    rounding of a float32 sum). Returns the largest |kernel − plain| of each
+    rounding of a float32 sum); the lookup's backward also bit for bit its
+    ordered reference (``bilinear_points_bwd_ordered``: each pixel's taps
+    in ascending point order). Returns the largest |kernel − plain| of each
     kernel."""
     err = {}
     for name, recs in calls.items():
@@ -710,14 +718,19 @@ def check_backward_kernels(calls, label: str) -> dict[str, float]:
                                for a in args))
                 share = ((got.double() - ref).abs()
                          / (2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max())).max().item()
+            ordered = True
+            if name == "bilinear_points_bwd":
+                ordered = torch.equal(got, resample.bilinear_points_bwd_ordered(*args))
             log("kernels", f"{name} {label} {tuple(args[0].shape)} -> {tuple(got.shape)} "
                 f"{str(got.dtype)[6:]}: max|d|/max|g| {rel:.3e} (limit {tol:g}) from the plain "
                 f"version, two runs bitwise {same}"
-                + (f", worst share of the float64 limit {share:.3f}" if share else ""))
-            if not same or not rel <= tol or share > 1.0:
+                + (f", worst share of the float64 limit {share:.3f}" if share else "")
+                + (f", bitwise the ordered reference {ordered}"
+                   if name == "bilinear_points_bwd" else ""))
+            if not same or not ordered or not rel <= tol or share > 1.0:
                 raise AssertionError(f"{name} {label} {tuple(args[0].shape)}: {rel} from the "
                                      f"plain version, float64 share {share}, two runs bitwise "
-                                     f"{same}")
+                                     f"{same}, bitwise the ordered reference {ordered}")
             err[name] = max(err[name], (got.float() - want.float()).abs().max().item())
     return err
 
@@ -809,6 +822,59 @@ def run_backward_kernels(device, cfg: Config) -> tuple[dict, dict]:
         if dtype == "float32":
             rows = timed
     return rows, err
+
+
+def kernel_spans(fn, calls: int = 20) -> tuple[float, dict[str, float]]:
+    """One replay, under ``torch.profiler``, of a CUDA graph of ``calls``
+    calls of fn: the card's span a call and each kernel's mean duration,
+    in µs, by the kernel's short name."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
+            by.setdefault(name, []).append(e.time_range.end - e.time_range.start)
+    span = (max(r.end for r in spans) - min(r.start for r in spans)) / calls
+    return span, {k: statistics.mean(v) for k, v in by.items()}
+
+
+def time_lookup(device, cfg: Config) -> None:
+    """``--time-lookup``: the point lookup's backward over one eager train
+    step's call of the default Config() and of its bfloat16 variant, timed
+    as the kernels phase times it, through the wrappers' public names only
+    (another tree's kernels timed the same way); then, in float32, the
+    card's span a call and each kernel's duration for it and for
+    ``grid_sampler_2d_backward`` (``kernel_spans``): where its time goes."""
+    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    for dtype in ("float32", "bfloat16"):
+        trainer = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, dtype=dtype)), device)
+        calls = record_backward_calls(trainer, batch)
+        time_backward_kernels({"bilinear_points_bwd": calls["bilinear_points_bwd"]}, dtype)
+        if dtype == "float32":
+            kernel, _, library, _, _ = backward_jobs("bilinear_points_bwd",
+                                                     calls["bilinear_points_bwd"][0])
+            for label, fn in (("kernel", kernel), ("grid_sampler_2d_backward", library)):
+                span, by = kernel_spans(fn)
+                log("kernels", f"bilinear_points_bwd float32, {label}, a graph of 20 calls: "
+                    f"{span:.2f} us of the card a call; " + ", ".join(
+                        f"{k} {t:.2f} us" for k, t in by.items()))
 
 
 def most(t: torch.Tensor) -> float:
@@ -1270,6 +1336,9 @@ def main() -> int:
                             device=device)
     if sys.argv[1:] == ["--time-nn"]:
         time_nn_rows(batch)
+        return 0
+    if sys.argv[1:] == ["--time-lookup"]:
+        time_lookup(device, Config())
         return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:

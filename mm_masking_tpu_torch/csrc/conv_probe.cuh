@@ -8,8 +8,9 @@
 // kmat (Co, 9 * Ci) f32 indexed k = (di * 3 + dj) * Ci + ci, the order of
 // benchmarks/probe_pallas_conv.py:102. The sums run in f32 on the CUDA cores
 // in that k order; bf16 inputs are widened exactly and each output is
-// rounded once to the input type. (P3's bf16 kernel, on the tensor cores,
-// uses the copies and the opt-in only: conv_probe_halo.cu.)
+// rounded once to the input type. The bfloat16 kernels of P1 and P3, on the
+// tensor cores (conv_probe_nhcw.cu, conv_probe_halo.cu), take the copies,
+// the ldmatrix and mma.sync wrappers and the opt-in only.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -185,6 +186,32 @@ __device__ inline void contract_x9(const T* x9, const float* ks, T* yb, int h0, 
       store_cob(yb + static_cast<size_t>(h0 + t) * Co * W + w0 + w, acc, co0, Co, W, relu);
     }
   }
+}
+
+// ------------------------------------------- bfloat16 tensor cores (P1, P3)
+
+// n-tiles of 8 output channels a block takes: up to 8 (64 channels).
+inline int n_tiles(int Co) { return Co <= 8 ? 1 : Co <= 16 ? 2 : Co <= 32 ? 4 : 8; }
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Opt the kernel into `bytes` of dynamic shared memory, once per device; an

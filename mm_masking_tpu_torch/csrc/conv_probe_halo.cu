@@ -132,9 +132,6 @@ constexpr int WROW = 48;  // bytes of one (tap, output channel) weight row: 2 un
 // Pixel stride of the halo in 16-byte units: the chunks' units, made odd.
 __host__ __device__ inline int halo_units(int n_chunks) { return 2 * n_chunks + 1; }
 
-// n-tiles of 8 output channels a block takes: up to 8 (64 channels).
-inline int n_tiles(int Co) { return Co <= 8 ? 1 : Co <= 16 ? 2 : Co <= 32 ? 4 : 8; }
-
 // One block's shared memory, in bytes: the weights, the halo, the output
 // tile and one (ring = 0) or two slab slots. All offsets are multiples
 // of 16 bytes.
@@ -155,27 +152,6 @@ struct SmemBf16 {
 size_t smem_bytes_bf16(int Ci, int Co, int TH, int Wt, bool ring) {
   if (Wt != 16 && Wt != 32 && Wt != 64 && Wt != 128) return SIZE_MAX;  // the kernel's widths
   return SmemBf16(Ci, n_tiles(Co), TH, Wt).total(ring);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // x (B, H, Ci, W) and y (B, H, Co, W) bf16; w bf16 (ceil(Ci / 16), 9, cop,

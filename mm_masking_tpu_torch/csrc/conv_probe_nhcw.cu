@@ -16,19 +16,40 @@
 //
 // What bounds it on this card: at the probes' shapes (1..32 channels) a
 // conv moves (Ci + Co) * 2 or 4 bytes per pixel and does 18 * Ci * Co
-// operations, so the tensor cores would make it bound by bytes (640^2,
-// 16 -> 16, B = 16, bf16: 419 MB, 0.125 ms at 3.35 TB/s). This kernel sums on
-// the f32 CUDA cores, which bound it by operations (30.2 GFLOP, 0.45 ms at
-// 67 TFLOP/s), and every multiply-add also reads shared memory.
+// operations, so the tensor cores make it bound by bytes (640^2, 16 -> 16,
+// B = 16, bf16: 419 MB, 0.125 ms at 3.35 TB/s); on the float32 CUDA cores it
+// is bound by operations (30.2 GFLOP, 0.45 ms at 67 TFLOP/s), and there every
+// multiply-add also reads shared memory.
 //
-// Design: one block takes one (b, row tile of TH rows, W tile of Wt
-// columns). It stages the (TH + 2) x Ci x (Wt + 2) halo slab with 16-byte
-// cp.async copies and waits for them: the counterpart of
-// make_async_copy(...).start(); .wait() at probe_pallas_conv.py:49-52. Then
-// it builds x9 in shared memory and contracts; each thread owns one (t, w)
-// and 8 output channels in registers. The host picks Wt from (TH, Ci, Co,
-// dtype) by mm_probe_nhcw_smem_bytes, so that the slab plus x9 fit in
-// shared memory.
+// float32, and bfloat16 in every variant but full (probe_nhcw_kernel): one
+// block takes one (b, row tile of TH rows, W tile of Wt columns). It stages
+// the (TH + 2) x Ci x (Wt + 2) halo slab with 16-byte cp.async copies and
+// waits for them: the counterpart of make_async_copy(...).start(); .wait()
+// at probe_pallas_conv.py:49-52. Then it builds x9 in shared memory and
+// contracts on the CUDA cores in f32; each thread owns one (t, w) and 8
+// output channels in registers.
+//
+// bfloat16 full, P1's body (probe_nhcw_mma_bf16, entry mm_probe_nhcw_mma_bf16):
+// the same staging (P1's x is read as it is, zero rows above and below the
+// image; P2's comes padded), then an explicit im2col stack a row at a time
+// and one contraction per row on mma.sync.m16n8k16 with float32 sums. The
+// stack holds a row's Wt pixels, each pixel's K = 9 Ci values innermost in
+// the probe's k order (di * 3 + dj) * Ci + ci, K padded as a whole to a
+// multiple of 16 (Ci = 1 takes one k16 step, where a stack of taps would take
+// nine) and pixels an odd number of 16-byte units apart, so that the 8 rows
+// of every ldmatrix fall in 8 different bank groups. Each 16-byte unit of
+// the stack is gathered from the slab by a thread of a warp that runs along
+// W, so that the gathers read the slab without bank conflicts: with Ci a
+// multiple of 8 a unit is 8 channels of one tap, S apart from one offset;
+// else 8 values from a table of offsets made once a block. Two stack
+// buffers: row t + 1 is built while row t is contracted. M is 16 pixels
+// along W of the row, N the output channels (up to 64 a block), K in k16
+// steps; each group of 9 steps starts a fresh accumulator, added to the
+// running sums in float32 registers (the tensor cores' sums round toward
+// zero). The weights arrive in bf16 as kmat (Co, 9 Ci) padded to (Co rounded
+// up to 8, K rounded up to 16) and stay in shared memory; the outputs go
+// through shared memory and leave as 16-byte rows of 8 pixels along W. The
+// host picks Wt from (TH, Ci, Co, dtype) by mm_probe_nhcw_smem_bytes.
 #include "conv_probe.cuh"
 
 namespace {
@@ -148,6 +169,259 @@ probe_nhcw_kernel(const T* __restrict__ xp, const float* __restrict__ kmat, T* _
   }
 }
 
+// ------------------------------------------------ bfloat16 full: tensor cores
+
+// Units of 16 bytes (8 values of k) a stack pixel or weight row spans: K
+// rounded up to 16, made odd.
+__host__ __device__ inline int k_units(int Ci) { return (9 * Ci + 15) / 16 * 2 + 1; }
+
+// One block's shared memory, in bytes. All offsets are multiples of 16 bytes.
+struct SmemMma {
+  size_t weights, koff, slab, stack, out;
+  __host__ __device__ SmemMma(int Ci, int NT, int TH, int Wt) {
+    const int ku = k_units(Ci), kp = (ku - 1) * 8;
+    weights = static_cast<size_t>(NT) * 8 * ku * 16;
+    koff = static_cast<size_t>(kp) * 4;
+    slab = static_cast<size_t>(TH + 2) * Ci * (Wt + 2 * vec_elems<__nv_bfloat16>()) * 2;
+    stack = 2 * static_cast<size_t>(Wt) * ku * 16;
+    out = static_cast<size_t>(TH) * NT * 8 * (Wt + 8) * 2;
+  }
+  __host__ __device__ size_t total() const { return weights + koff + slab + stack + out; }
+};
+
+size_t smem_bytes_mma(int Ci, int Co, int TH, int Wt) {
+  if (Wt != 16 && Wt != 32 && Wt != 64 && Wt != 128) return SIZE_MAX;  // the kernel's widths
+  return SmemMma(Ci, n_tiles(Co), TH, Wt).total();
+}
+
+// x (B, H, Ci, W), or with padded xp (B, H + 2, Ci, W) with a zero row
+// above and below, and y (B, H, Co, W) bf16; w bf16 (cop, kp): kmat
+// zero-padded to cop = Co rounded up to 8 and kp = 9 Ci rounded up to 16. A
+// block takes NT n-tiles of output channels, WT columns and TH rows;
+// grid = (ceil(W / WT), H / TH, B * co_groups).
+template <int NT, int WT>
+__global__ void __launch_bounds__(THREADS, 2)
+probe_nhcw_mma_bf16(const __nv_bfloat16* __restrict__ x, const uint16_t* __restrict__ w,
+                    __nv_bfloat16* __restrict__ y, int H, int Ci, int Co, int W, int TH,
+                    int padded, int relu, int vec) {
+  constexpr int V = vec_elems<__nv_bfloat16>();
+  constexpr int CO_T = 8 * NT;
+  constexpr int MT = WT / 16, S = WT + 2 * V, SO = WT + 8, NV = S / V;
+  constexpr int NTB = NT > 1 ? 2 : 1;  // n-tiles of a warp's item, sharing its A fragment
+  constexpr int NB = NT / NTB;
+  constexpr int GROUP = 9;                      // k16 steps into one fresh accumulator
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;        // C fragment row group, column pair
+  const int K = 9 * Ci, ku = k_units(Ci), kp = (ku - 1) * 8, ksteps = kp / 16;
+  const int cop = (Co + 7) / 8 * 8;
+  const int co_groups = (Co + CO_T - 1) / CO_T;
+  const int b = blockIdx.z / co_groups, co0 = blockIdx.z % co_groups * CO_T;
+  const int w0 = blockIdx.x * WT, h0 = blockIdx.y * TH;
+
+  const SmemMma lay(Ci, NT, TH, WT);
+  unsigned char* wsm = smem;
+  int* koff = reinterpret_cast<int*>(smem + lay.weights);
+  __nv_bfloat16* slab = reinterpret_cast<__nv_bfloat16*>(smem + lay.weights + lay.koff);
+  unsigned char* stack = smem + lay.weights + lay.koff + lay.slab;
+  uint16_t* out = reinterpret_cast<uint16_t*>(stack + lay.stack);
+  const int hx = padded ? H + 2 : H;  // rows of x
+  const __nv_bfloat16* xb = x + static_cast<size_t>(b) * hx * Ci * W;
+
+  // Rows h0 - 1 .. h0 + TH of the image (of xp: h0 .. h0 + TH + 1), columns
+  // w0 - V .. w0 + WT + V - 1, into the slab, row (halo row, channel) S
+  // elements apart; zeros outside the image. With vec (W a multiple of 8, x
+  // 16-byte aligned) every 16-byte vector lies wholly inside or outside the
+  // row and goes by cp.async.
+  const int rows = (TH + 2) * Ci;
+  const int g0 = (h0 - (padded ? 0 : 1)) * Ci;  // x's (row, channel) of slab row 0
+  auto src = [&](int r) -> const __nv_bfloat16* {  // slab row r's source row, or null
+    return g0 + r < 0 || g0 + r >= hx * Ci ? nullptr : xb + static_cast<size_t>(g0 + r) * W;
+  };
+  if (vec) {
+    for (int q = threadIdx.x; q < rows * NV; q += THREADS) {
+      const int r = q / NV, gw = w0 - V + q % NV * V;
+      __nv_bfloat16* d = slab + r * S + q % NV * V;
+      const __nv_bfloat16* row = src(r);
+      if (row != nullptr && gw >= 0 && gw < W) {
+        cp_async16(d, row + gw);
+      } else {
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  } else {
+    for (int q = threadIdx.x; q < rows * (WT + 2); q += THREADS) {
+      const int r = q / (WT + 2), gw = w0 - 1 + q % (WT + 2);
+      const __nv_bfloat16* row = src(r);
+      slab[r * S + V - 1 + q % (WT + 2)] =
+          row != nullptr && gw >= 0 && gw < W ? row[gw] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+  // The block's weight rows, ku units apart (the last unit spare), and where
+  // the stack's values are in the slab: with Ci a multiple of 8 a unit's 8
+  // values are 8 channels of one tap, S apart from koff[u] = (di Ci + 8 (u %
+  // cu)) S + V + dj - 1 (tap u / cu, cu = Ci / 8); else each k's own,
+  // koff[k] = (di Ci + ci) S + V + dj - 1; -1 past K.
+  for (int q = threadIdx.x; q < CO_T * (ku - 1); q += THREADS) {
+    const int co = q / (ku - 1), u = q % (ku - 1);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (co0 + co < cop)
+      v = __ldg(reinterpret_cast<const uint4*>(w + static_cast<size_t>(co0 + co) * kp + 8 * u));
+    *reinterpret_cast<uint4*>(wsm + (co * ku + u) * 16) = v;
+  }
+  const bool by_unit = Ci % 8 == 0;
+  for (int k = threadIdx.x; k < kp; k += THREADS) {
+    const int tap = by_unit ? k / (Ci / 8) : k / Ci, ci = by_unit ? k % (Ci / 8) * 8 : k % Ci;
+    koff[k] = tap < 9 ? (tap / 3 * Ci + ci) * S + V + tap % 3 - 1 : -1;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Row t's stack into buffer s: pixel p's unit u holds k = 8 u .. 8 u + 7.
+  // A warp that contracts a row (the first CW) builds half as many of the
+  // next row's units as one that does not, so that they reach the row's
+  // barrier at about the same time; units are dealt out 32 at a time.
+  constexpr int WARPS = THREADS / 32, CW = MT * NB < WARPS ? MT * NB : WARPS;
+  const int units = WT * (ku - 1);
+  const int split = units * (WARPS - CW) * 2 / ((WARPS - CW) * 2 + CW) / 32 * 32;
+  const int q0 = warp < CW ? split + warp * 32 + lane : (warp - CW) * 32 + lane;
+  const int q1 = warp < CW ? units : split;
+  const int qs = 32 * (warp < CW ? CW : WARPS - CW);
+  auto build = [&](int t, int s) {
+    const __nv_bfloat16* row = slab + t * Ci * S;
+    unsigned char* dst = stack + s * (lay.stack / 2);
+    for (int q = q0; q < q1; q += qs) {
+      const int p = q % WT, u = q / WT;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (by_unit) {
+        const int o = koff[u];
+        if (o >= 0) {
+          const __nv_bfloat16* c = row + o + p;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = __bfloat16_as_ushort(c[2 * j * S]) |
+                   static_cast<uint32_t>(__bfloat16_as_ushort(c[(2 * j + 1) * S])) << 16;
+        }
+      } else {
+        const int4 o0 = *reinterpret_cast<const int4*>(koff + 8 * u);
+        const int4 o1 = *reinterpret_cast<const int4*>(koff + 8 * u + 4);
+        const int o[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t lo = o[2 * j] >= 0 ? __bfloat16_as_ushort(row[o[2 * j] + p]) : 0u;
+          const uint32_t hi =
+              o[2 * j + 1] >= 0 ? __bfloat16_as_ushort(row[o[2 * j + 1] + p]) : 0u;
+          v[j] = lo | hi << 16;
+        }
+      }
+      *reinterpret_cast<uint4*>(dst + (p * ku + u) * 16) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  const uint32_t stack_s = static_cast<uint32_t>(__cvta_generic_to_shared(stack));
+  const uint32_t w_s = static_cast<uint32_t>(__cvta_generic_to_shared(wsm));
+  // ldmatrix rows. A: lanes 8q .. 8q + 7 address matrix q: pixels 8 (q % 2)
+  // .. of the m-tile, k half q / 2 of the step. B: matrix q of an x4 is
+  // n-tile q / 2 of the n-block, k half q % 2 (an x2: the n-tile's halves).
+  const int a_pix = lane / 8 % 2 * 8 + lane % 8, a_half = lane / 16;
+  const int b_co = (NTB > 1 ? lane / 16 : 0) * 8 + lane % 8, b_half = lane / 8 % 2;
+
+  build(0, 0);
+  __syncthreads();
+  for (int t = 0; t < TH; ++t) {
+    if (t + 1 < TH) build(t + 1, (t + 1) & 1);
+    const uint32_t a_base = stack_s + (t & 1) * static_cast<uint32_t>(lay.stack / 2);
+    for (int item = warp; item < MT * NB; item += THREADS / 32) {
+      const int mt = item % MT, nb = item / MT;
+      float acc[NTB][4] = {};
+      for (int k0 = 0; k0 < ksteps; k0 += GROUP) {
+        float d[NTB][4] = {};  // this group's fresh accumulator
+#pragma unroll
+        for (int i = 0; i < GROUP; ++i) {
+          const int ks = k0 + i;
+          if (ks >= ksteps) break;
+          uint32_t a[4], bf[NTB][2];
+          ldsm_x4(a, a_base + ((mt * 16 + a_pix) * ku + 2 * ks + a_half) * 16);
+          const uint32_t b_addr = w_s + ((nb * NTB * 8 + b_co) * ku + 2 * ks + b_half) * 16;
+          if constexpr (NTB == 1) {
+            ldsm_x2(bf[0][0], bf[0][1], b_addr);
+          } else {
+            uint32_t r[4];
+            ldsm_x4(r, b_addr);
+            bf[0][0] = r[0];
+            bf[0][1] = r[1];
+            bf[1][0] = r[2];
+            bf[1][1] = r[3];
+          }
+#pragma unroll
+          for (int n = 0; n < NTB; ++n) mma_bf16(d[n], a, bf[n][0], bf[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < NTB; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] += d[n][e];
+      }
+      // C fragment element e: pixel g + 8 (e / 2) of the m-tile, output
+      // channel 2 t4 + e % 2 of the n-tile.
+#pragma unroll
+      for (int n = 0; n < NTB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = relu ? fmaxf(acc[n][e], 0.f) : acc[n][e];
+          out[(t * CO_T + (nb * NTB + n) * 8 + 2 * t4 + e % 2) * SO + mt * 16 + g + 8 * (e / 2)] =
+              __bfloat16_as_ushort(__float2bfloat16_rn(v));
+        }
+    }
+    __syncthreads();  // row t + 1's stack is built; buffer t & 1 is free
+  }
+  // The output tile leaves in 8-pixel rows along W.
+  for (int q = threadIdx.x; q < TH * CO_T * (WT / 8); q += THREADS) {
+    const int sg = q % (WT / 8), co = q / (WT / 8) % CO_T, row = q / (WT / 8 * CO_T);
+    const int gw = w0 + 8 * sg;
+    if (co0 + co >= Co || gw >= W) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(out + (row * CO_T + co) * SO + 8 * sg);
+    uint16_t* dst = reinterpret_cast<uint16_t*>(y) +
+                    ((static_cast<size_t>(b) * H + h0 + row) * Co + co0 + co) * W + gw;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (gw + k < W) dst[k] = static_cast<uint16_t>(vw[k / 2] >> (16 * (k % 2)));
+    }
+  }
+}
+
+template <int NT, int WT>
+int launch_mma_cfg(const void* x, const void* w, void* y, int B, int H, int Ci, int Co, int W,
+                   int TH, int padded, int relu, int vec, cudaStream_t stream) {
+  const size_t bytes = SmemMma(Ci, NT, TH, WT).total();
+  const auto kernel = probe_nhcw_mma_bf16<NT, WT>;
+  const int status = smem_opt_in(kernel, bytes);
+  if (status != 0) return status;
+  const dim3 grid((W + WT - 1) / WT, H / TH, B * ((Co + 8 * NT - 1) / (8 * NT)));
+  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                            static_cast<const uint16_t*>(w),
+                                            static_cast<__nv_bfloat16*>(y), H, Ci, Co, W, TH,
+                                            padded, relu, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int launch_mma(const void* x, const void* w, void* y, int B, int H, int Ci, int Co, int W,
+               int TH, int Wt, int padded, int relu, int vec, cudaStream_t st) {
+  switch (Wt) {
+    case 16: return launch_mma_cfg<NT, 16>(x, w, y, B, H, Ci, Co, W, TH, padded, relu, vec, st);
+    case 32: return launch_mma_cfg<NT, 32>(x, w, y, B, H, Ci, Co, W, TH, padded, relu, vec, st);
+    case 64: return launch_mma_cfg<NT, 64>(x, w, y, B, H, Ci, Co, W, TH, padded, relu, vec, st);
+    case 128:
+      return launch_mma_cfg<NT, 128>(x, w, y, B, H, Ci, Co, W, TH, padded, relu, vec, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);  // whole m-tiles, at most 128
+  }
+}
+
 template <typename T, int VARIANT>
 int launch_variant(const T* xp, const float* kmat, T* y, int B, int H, int Ci, int Co, int W,
                    int TH, int Wt, int relu, int vec, cudaStream_t stream) {
@@ -166,7 +440,11 @@ int launch(const T* xp, const float* kmat, T* y, int B, int H, int Ci, int Co, i
            int Wt, int variant, int relu, int vec, cudaStream_t stream) {
   switch (variant) {
     case FULL:
-      return launch_variant<T, FULL>(xp, kmat, y, B, H, Ci, Co, W, TH, Wt, relu, vec, stream);
+      if constexpr (sizeof(T) == 2) {
+        return static_cast<int>(cudaErrorInvalidValue);  // mm_probe_nhcw_mma_bf16
+      } else {
+        return launch_variant<T, FULL>(xp, kmat, y, B, H, Ci, Co, W, TH, Wt, relu, vec, stream);
+      }
     case ASM_ONLY:
       return launch_variant<T, ASM_ONLY>(xp, kmat, y, B, H, Ci, Co, W, TH, Wt, relu, vec,
                                          stream);
@@ -185,10 +463,12 @@ int launch(const T* xp, const float* kmat, T* y, int B, int H, int Ci, int Co, i
 
 }  // namespace
 
-// Shared bytes of one block: the host picks Wt by it.
+// Shared bytes of one block (bfloat16 full: the tensor-core kernel's,
+// SIZE_MAX for a Wt it does not take): the host picks Wt by it.
 extern "C" size_t mm_probe_nhcw_smem_bytes(int variant, int Ci, int Co, int TH, int Wt,
                                            int elem) {
-  return smem_bytes(variant, Ci, Co, TH, Wt, elem);
+  return variant == FULL && elem == 2 ? smem_bytes_mma(Ci, Co, TH, Wt)
+                                      : smem_bytes(variant, Ci, Co, TH, Wt, elem);
 }
 
 extern "C" int mm_probe_nhcw_f32(const void* xp, const void* kmat, void* y, int B, int H,
@@ -199,10 +479,27 @@ extern "C" int mm_probe_nhcw_f32(const void* xp, const void* kmat, void* y, int 
                 static_cast<cudaStream_t>(stream));
 }
 
+// Every variant but full (which is mm_probe_nhcw_mma_bf16).
 extern "C" int mm_probe_nhcw_bf16(const void* xp, const void* kmat, void* y, int B, int H,
                                   int Ci, int Co, int W, int TH, int Wt, int variant, int relu,
                                   int vec, void* stream) {
   return launch(static_cast<const __nv_bfloat16*>(xp), static_cast<const float*>(kmat),
                 static_cast<__nv_bfloat16*>(y), B, H, Ci, Co, W, TH, Wt, variant, relu, vec,
                 static_cast<cudaStream_t>(stream));
+}
+
+// P1's body in bfloat16 on the tensor cores: x (B, H, Ci, W), or with padded
+// xp (B, H + 2, Ci, W) as P2 takes it; w the bfloat16 weights, kmat
+// zero-padded to (Co rounded up to 8, 9 Ci rounded up to 16).
+extern "C" int mm_probe_nhcw_mma_bf16(const void* x, const void* w, void* y, int B, int H,
+                                      int Ci, int Co, int W, int TH, int Wt, int padded,
+                                      int relu, int vec, void* stream) {
+  if (TH < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (n_tiles(Co)) {
+    case 1: return launch_mma<1>(x, w, y, B, H, Ci, Co, W, TH, Wt, padded, relu, vec, st);
+    case 2: return launch_mma<2>(x, w, y, B, H, Ci, Co, W, TH, Wt, padded, relu, vec, st);
+    case 4: return launch_mma<4>(x, w, y, B, H, Ci, Co, W, TH, Wt, padded, relu, vec, st);
+    default: return launch_mma<8>(x, w, y, B, H, Ci, Co, W, TH, Wt, padded, relu, vec, st);
+  }
 }

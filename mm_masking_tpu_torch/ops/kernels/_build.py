@@ -46,6 +46,9 @@ _SIGNATURES = {
     # xp, kmat, y, B, H, Ci, Co, W, TH, Wt, variant, relu, vec, stream
     "mm_probe_nhcw_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     "mm_probe_nhcw_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    # x, packed bf16 weights, y, B, H, Ci, Co, W, TH, Wt, padded, relu, vec,
+    # stream (P1's body in bf16 on the tensor cores)
+    "mm_probe_nhcw_mma_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
     # x, kmat, y, B, H, Ci, Co, W, TH, Wt, G, relu, vec, stream (f32); x,
     # packed bf16 weights, y, …, vec, ring, stream (bf16)
     "mm_probe_halo_f32": [_P, _P, _P] + [_I] * 10 + [_P],
@@ -56,10 +59,10 @@ _SIGNATURES = {
     # dy, w0, w1, off, dx, outer, n_in, n_out, inner, stream (resize_bwd.cu)
     "mm_resize_bwd_f32": [_P] * 5 + [_I] * 4 + [_P],
     "mm_resize_bwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
-    # dout, coords, dimage, N, P, H, W, align_corners, stream
+    # dout, coords, dimage, lists, starts, N, P, H, W, align_corners, stream
     # (bilinear_points_bwd.cu)
-    "mm_bilinear_points_bwd_f32": [_P] * 3 + [_I] * 5 + [_P],
-    "mm_bilinear_points_bwd_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    "mm_bilinear_points_bwd_f32": [_P] * 5 + [_I] * 5 + [_P],
+    "mm_bilinear_points_bwd_bf16": [_P] * 5 + [_I] * 5 + [_P],
 }
 # Host-side functions of the sources: name → (argument types, result type).
 _HOST = {
@@ -79,6 +82,8 @@ _HOST = {
     "mm_probe_nhcw_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     "mm_probe_halo_smem_bytes": ([_I] * 5, ctypes.c_size_t),
     "mm_probe_flat_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    # int[3] ← the lookup backward's bin rows, bin columns and points a chunk
+    "mm_bilinear_points_layout": ([ctypes.POINTER(ctypes.c_int)], None),
 }
 
 

@@ -7,7 +7,8 @@ a CUDA kernel here:
 - P1 :func:`conv3x3_nhcw` (``probe_pallas_conv.py:105``) and P2
   :func:`conv3x3_nhcw_run` (``probe_pallas_conv2.py:103``, P1's body in five
   variants) → ``csrc/conv_probe_nhcw.cu``: one staged halo slab, an explicit
-  im2col stack, one contraction per row;
+  im2col stack, one contraction per row; in bfloat16 P1's body (P2's
+  ``full``) contracts on the tensor cores;
 - P3 :func:`conv3x3_nhcw_v2` (``probe_pallas_conv3.py:80``) →
   ``csrc/conv_probe_halo.cu``: the same, the next tile's halo prefetched
   through a two-stage ring; in bfloat16 an implicit GEMM on the tensor
@@ -30,6 +31,7 @@ variant in :data:`RUN_COUNTERS`.
 """
 from __future__ import annotations
 
+import functools
 import types
 
 import torch
@@ -152,14 +154,72 @@ def _w_tile(W: int, smem_of, what: str) -> int:
     return pick_size([t for t in W_TILES if t <= -(-W // 8) * 8], smem_of, what)
 
 
+def pack_kmat_bf16(kmat: torch.Tensor) -> torch.Tensor:
+    """kmat (Co, 9·Ci) bfloat16 → the weights of P1's bfloat16 kernel: kmat
+    zero-padded to (Co rounded up to 8, 9·Ci rounded up to 16), K as a whole
+    in the probes' k order (no chunks of channels)."""
+    Co, K = kmat.shape
+    return F.pad(kmat, (0, -K % 16, 0, -Co % 8)).contiguous()
+
+
+def mma_smem_bytes(Ci: int, Co: int, TH: int, Wt: int) -> int:
+    """Shared bytes of one block of P1's bfloat16 tensor-core kernel (the
+    layout ``SmemMma`` of ``csrc/conv_probe_nhcw.cu``, which reports the same
+    through ``mm_probe_nhcw_smem_bytes``; a sum for checks without the card):
+    the weights and each pixel of the stack K = 9·Ci rounded up to 16 and
+    made an odd number of 16-byte units, the k offsets, the slab of TH + 2
+    rows, two stack rows and the output tile; SIZE_MAX, 2⁶⁴ − 1, for a Wt it
+    does not take."""
+    if Wt not in (16, 32, 64, 128):
+        return 2**64 - 1
+    ku = -(-9 * Ci // 16) * 2 + 1
+    nt = 1 if Co <= 8 else 2 if Co <= 16 else 4 if Co <= 32 else 8
+    return (8 * nt * ku * 16 + (ku - 1) * 8 * 4 + (TH + 2) * Ci * (Wt + 16) * 2
+            + 2 * Wt * ku * 16 + TH * 8 * nt * (Wt + 8) * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _nhcw_tile(v: int, Ci: int, Co: int, TH: int, W: int, e: int) -> int:
+    """The column tile of P1's body as variant ``v`` (by the source's own
+    bytes, ``mm_probe_nhcw_smem_bytes``)."""
+    dtype = "bf16" if e == 2 else "f32"
+    return _w_tile(W, lambda t: library().mm_probe_nhcw_smem_bytes(v, Ci, Co, TH, t, e),
+                   f"conv probe {VARIANTS[v]} Ci={Ci} Co={Co} TH={TH} {dtype}")
+
+
+def _launch_mma(x: torch.Tensor, kmat: torch.Tensor, TH: int, relu: bool,
+                padded: bool) -> torch.Tensor:
+    """P1's body in bfloat16 on the tensor cores, on x (B, H, Ci, W) or,
+    ``padded``, on x with a zero row above and below (B, H + 2, Ci, W); the
+    kernel takes a bfloat16 kmat only (ValueError before anything is built:
+    its products are of bfloat16 values, and a float32 kmat would be
+    rounded)."""
+    if kmat.dtype != torch.bfloat16:
+        raise ValueError(f"conv probe full: the bfloat16 kernel takes a bfloat16 k, got "
+                         f"{kmat.dtype} (it would be rounded to bfloat16)")
+    x = x.contiguous()
+    B, Hx, Ci, W = x.shape
+    H, Co = Hx - 2 * padded, kmat.shape[0]
+    vec = W % 8 == 0 and x.data_ptr() % 16 == 0
+    wt = _nhcw_tile(0, Ci, Co, TH, W, 2)
+    w = pack_kmat_bf16(kmat)
+    y = torch.empty((B, H, Co, W), dtype=x.dtype, device=x.device)
+    launch("mm_probe_nhcw_mma_bf16", x.device, x.data_ptr(), w.data_ptr(), y.data_ptr(), B, H,
+           Ci, Co, W, TH, wt, int(padded), int(relu), int(vec))
+    return y
+
+
 def _launch_nhcw(variant: str, xp: torch.Tensor, kmat: torch.Tensor, TH: int,
                  relu: bool) -> torch.Tensor:
+    """P1's body as ``variant`` on the CUDA cores, on x padded by a zero row
+    above and below; bfloat16 ``full`` is :func:`_launch_mma`'s."""
+    if xp.dtype == torch.bfloat16 and variant == "full":
+        return _launch_mma(xp, kmat, TH, relu, padded=True)
     xp, km, vec = _kernel_inputs(xp, kmat)
     B, Hp, Ci, W = xp.shape
     Co, e = km.shape[0], xp.element_size()
     v = VARIANTS.index(variant)
-    wt = _w_tile(W, lambda t: library().mm_probe_nhcw_smem_bytes(v, Ci, Co, TH, t, e),
-                 f"conv probe {variant} Ci={Ci} Co={Co} TH={TH} {xp.dtype}")
+    wt = _nhcw_tile(v, Ci, Co, TH, W, e)
     y = torch.empty((B, Hp - 2, Co, W), dtype=xp.dtype, device=xp.device)
     launch(f"mm_probe_nhcw_{_SUFFIX[xp.dtype]}", xp.device, xp.data_ptr(), km.data_ptr(),
            y.data_ptr(), B, Hp - 2, Ci, Co, W, TH, wt, v, int(relu), vec)
@@ -170,13 +230,18 @@ def conv3x3_nhcw(x: torch.Tensor, k: torch.Tensor, TH: int = 8,
                  relu: bool = False) -> torch.Tensor:
     """P1: 3×3 SAME conv, x (B, H, Ci, W), k (3, 3, Ci, Co) → (B, H, Co, W);
     one block per TH output rows, from x padded by a zero row above and
-    below."""
+    below. A bfloat16 x runs the tensor-core kernel, which reads x's rows
+    itself (zeros above and below the image), and takes a bfloat16 k only
+    (ValueError otherwise, as :func:`conv3x3_nhcw_v2`)."""
     B, H, Ci, W = x.shape
     _check_hwio(k, Ci)
     _check_rows(H, TH)
     if not use_kernel(x, k):
         return conv3x3_nhcw_plain(x, k, relu)
-    y = _launch_nhcw("full", F.pad(x, (0, 0, 0, 0, 1, 1)), kmat_from_hwio(k), TH, relu)
+    if x.dtype == torch.bfloat16:  # reads x's rows itself, zeros above and below
+        y = _launch_mma(x, kmat_from_hwio(k), TH, relu, padded=False)
+    else:
+        y = _launch_nhcw("full", F.pad(x, (0, 0, 0, 0, 1, 1)), kmat_from_hwio(k), TH, relu)
     conv3x3_nhcw.launches += 1
     return y
 
@@ -187,7 +252,8 @@ def conv3x3_nhcw_run(variant: str, x_padded: torch.Tensor, kmat: torch.Tensor,
     (B, H + 2, Ci, W) and kmat (Co, 9·Ci) → (B, H, Co, W). ``full``, ``row2``
     and ``tap-dots`` give the conv; ``asm-only`` the first Co rows of the
     im2col stack; ``dot-only`` a contraction over scratch that was never
-    written, whose value is undefined."""
+    written, whose value is undefined. ``full`` on a bfloat16 x_padded is
+    P1's tensor-core kernel and takes a bfloat16 kmat only."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     B, Hp, Ci, W = x_padded.shape

@@ -22,12 +22,13 @@ tensor launches the kernel or raises. Each counts its launches.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 import torch.nn.functional as F
 
-from mm_masking_tpu_torch.ops.kernels._build import launch, use_kernel
+from mm_masking_tpu_torch.ops.kernels._build import launch, library, use_kernel
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -142,6 +143,11 @@ def resize_axis(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- point lookup
 
+# The layout of ``csrc/bilinear_points_bwd.cu``: the image's bins of BIN_H
+# rows × BIN_W columns (one warp each), and the points binned in chunks of
+# CHUNK (one block each).
+BIN_H, BIN_W, CHUNK = 10, 128, 256
+
 
 def bilinear_points_bwd_plain(dout: torch.Tensor, image: torch.Tensor, coords: torch.Tensor,
                               align_corners: bool = True) -> torch.Tensor:
@@ -154,28 +160,143 @@ def bilinear_points_bwd_plain(dout: torch.Tensor, image: torch.Tensor, coords: t
     return dimage[:, 0].to(image.dtype)
 
 
-def bilinear_points_bwd(dout: torch.Tensor, image: torch.Tensor, coords: torch.Tensor,
-                        align_corners: bool = True) -> torch.Tensor:
-    """The image's gradient of the lookup of ``image`` (N, H, W) at
-    ``coords`` (N, P, 2) (normalised (x, y), the image's type) under
-    ``dout`` (N, P): (N, H, W) in the image's type. On the card each pixel
-    sums the taps that land on it in ascending point order in float32
-    (``csrc/bilinear_points_bwd.cu``): the same bits every run. Only the
-    image's shape and type are read."""
-    if not use_kernel(dout, image, coords):
-        return bilinear_points_bwd_plain(dout, image, coords, align_corners)
+def _pixel_xy(coords: torch.Tensor, H: int, W: int, align_corners: bool):
+    """ATen's ``grid_sampler_unnormalize`` in float32: the points' pixel
+    coordinates (x, y), each (N, P)."""
+    c = coords.float()
+    if align_corners:
+        return (c[..., 0] + 1.0) * 0.5 * (W - 1), (c[..., 1] + 1.0) * 0.5 * (H - 1)
+    return ((c[..., 0] + 1.0) * W - 1.0) * 0.5, ((c[..., 1] + 1.0) * H - 1.0) * 0.5
+
+
+def _taps(coords: torch.Tensor, H: int, W: int, align_corners: bool):
+    """The four taps of every point, tap (a, b) at index 2·b + a:
+    (column, row, in the image, wx·wy) each (N, P, 4), the weights in
+    float32 as ATen forms them."""
+    x, y = _pixel_xy(coords, H, W, align_corners)
+    fx, fy = x.floor(), y.floor()
+    cols, rows, oks, ws = [], [], [], []
+    for b in (0, 1):
+        for a in (0, 1):
+            c, r = fx + a, fy + b
+            wx = x - fx if a else (fx + 1.0) - x
+            wy = y - fy if b else (fy + 1.0) - y
+            oks.append((c >= 0) & (c < W) & (r >= 0) & (r < H))
+            cols.append(c.clamp(0, W - 1).long())
+            rows.append(r.clamp(0, H - 1).long())
+            ws.append(wx * wy)
+    return (torch.stack(cols, -1), torch.stack(rows, -1), torch.stack(oks, -1),
+            torch.stack(ws, -1))
+
+
+def bilinear_points_bwd_ordered(dout: torch.Tensor, image: torch.Tensor, coords: torch.Tensor,
+                                align_corners: bool = True) -> torch.Tensor:
+    """The kernel's sums in plain PyTorch: every pixel adds the taps that
+    land on it in ascending point order, each product ``(wx·wy)·dout``
+    rounded to float32, each sum from +0 in float32, the result rounded once
+    to the image's type. One step a point, over the N images at once (the
+    four taps of a point land on four distinct pixels). Slow: a reference
+    for tests and checks, on no path."""
+    N, H, W = image.shape
+    P = coords.shape[1]
+    cols, rows, ok, w = _taps(coords, H, W, align_corners)
+    item = torch.arange(N, device=image.device)[:, None, None] * (H * W)
+    sink = N * H * W  # where the taps outside the image go
+    idx = torch.where(ok, item + rows * W + cols, sink)
+    val = w * dout.float()[..., None]
+    acc = torch.zeros(sink + 1, dtype=torch.float32, device=image.device)
+    for p in range(P):
+        i = idx[:, p].reshape(-1)
+        acc[i] = acc[i] + val[:, p].reshape(-1)
+    return acc[:sink].view(N, H, W).to(image.dtype)
+
+
+def lookup_layout(N: int, P: int, H: int, W: int) -> tuple[int, int]:
+    """(chunks of points G, the image's bins) of one kernel call."""
+    return -(-P // CHUNK), -(-H // BIN_H) * -(-W // BIN_W)
+
+
+def bin_points_plain(coords: torch.Tensor, H: int, W: int, align_corners: bool = True):
+    """The kernel's binning in plain PyTorch: (lists (N, G, 4·CHUNK) int32,
+    starts (N, bins + 1, G) int32). Chunk g holds points g·CHUNK …
+    (g + 1)·CHUNK − 1; each of its points enters the list of every bin of
+    BIN_H × BIN_W pixels that one of its taps reaches (once a bin); the list
+    holds the bins' entries one bin after another, each bin's in ascending
+    p, and bin t's begin at starts[n, t, g] (t = bins: the end). Unused
+    entries are −1. The kernel's entries carry p's bits beside the point's
+    pixel coordinates and dout."""
+    N, P, _ = coords.shape
+    G, bins = lookup_layout(N, P, H, W)
+    cols, rows, ok, _ = _taps(coords, H, W, align_corners)
+    t = torch.where(ok, rows // BIN_H * -(-W // BIN_W) + cols // BIN_W, -1)
+    for s in (1, 2, 3):  # a point's taps in one bin make one entry, the first
+        t[..., s] = torch.where((t[..., :s] == t[..., s:s + 1]).any(-1), -1, t[..., s])
+    n, p, s = (t >= 0).nonzero(as_tuple=True)
+    seg, bin_ = n * G + p // CHUNK, t[n, p, s]
+    order = torch.argsort((seg * bins + bin_) * P + p)
+    seg, bin_, p = seg[order], bin_[order], p[order]
+    counts = torch.bincount(seg * bins + bin_, minlength=N * G * bins).view(N * G, bins)
+    starts = F.pad(counts.cumsum(-1), (1, 0))
+    first = F.pad(counts.sum(-1).cumsum(0), (1, 0))[:-1]
+    lists = torch.full((N * G, 4 * CHUNK), -1, dtype=torch.int32, device=coords.device)
+    lists[seg, torch.arange(len(seg), device=coords.device) - first[seg]] = p.int()
+    return (lists.view(N, G, 4 * CHUNK),
+            starts.view(N, G, bins + 1).transpose(1, 2).int().contiguous())
+
+
+def _checked_layout() -> None:
+    """The kernel's compiled layout must be the one allocated for it."""
+    if not _checked_layout.done:
+        got = (ctypes.c_int * 3)()
+        library().mm_bilinear_points_layout(got)
+        if tuple(got) != (BIN_H, BIN_W, CHUNK):
+            raise RuntimeError(f"bilinear_points_bwd.cu has the layout {tuple(got)}, "
+                               f"not {(BIN_H, BIN_W, CHUNK)}")
+        _checked_layout.done = True
+
+
+_checked_layout.done = False
+
+
+def _lookup_bwd_kernel(dout: torch.Tensor, image: torch.Tensor, coords: torch.Tensor,
+                       align_corners: bool):
+    """Both launches of ``csrc/bilinear_points_bwd.cu`` on CUDA tensors:
+    (dimage, lists, starts), the scratch as :func:`bin_points_plain` lays it
+    out, each entry of ``lists`` (N, G, 4·CHUNK, 4) float32 the point's pixel
+    coordinates, its dout and p's bits."""
     _check_types("bilinear_points_bwd", dout, image, coords)
     N, H, W = image.shape
     P = coords.shape[1]
     if coords.shape != (N, P, 2) or dout.shape != (N, P):
         raise ValueError(f"coords {tuple(coords.shape)} and dout {tuple(dout.shape)} do not "
                          f"fit image {tuple(image.shape)}")
+    _checked_layout()
     dout, coords = dout.contiguous(), coords.contiguous()
     if coords.data_ptr() % (2 * coords.element_size()):  # a point's (x, y) loads as one vector
         coords = coords.clone()
+    G, bins = lookup_layout(N, P, H, W)
     dimage = torch.empty((N, H, W), dtype=image.dtype, device=image.device)
+    lists = torch.empty((N, G, 4 * CHUNK, 4), dtype=torch.float32, device=image.device)
+    starts = torch.empty((N, bins + 1, G), dtype=torch.int32, device=image.device)
     launch(f"mm_bilinear_points_bwd_{_SUFFIX[image.dtype]}", image.device, dout.data_ptr(),
-           coords.data_ptr(), dimage.data_ptr(), N, P, H, W, int(align_corners))
+           coords.data_ptr(), dimage.data_ptr(), lists.data_ptr(), starts.data_ptr(), N, P, H,
+           W, int(align_corners))
+    return dimage, lists, starts
+
+
+def bilinear_points_bwd(dout: torch.Tensor, image: torch.Tensor, coords: torch.Tensor,
+                        align_corners: bool = True) -> torch.Tensor:
+    """The image's gradient of the lookup of ``image`` (N, H, W) at
+    ``coords`` (N, P, 2) (normalised (x, y), the image's type) under
+    ``dout`` (N, P): (N, H, W) in the image's type. On the card the points
+    are binned once by image bin, then each bin sums the taps that land on
+    each pixel in ascending point order in float32
+    (``csrc/bilinear_points_bwd.cu``): the bits of
+    :func:`bilinear_points_bwd_ordered`, every run. Only the image's shape
+    and type are read."""
+    if not use_kernel(dout, image, coords):
+        return bilinear_points_bwd_plain(dout, image, coords, align_corners)
+    dimage, _, _ = _lookup_bwd_kernel(dout, image, coords, align_corners)
     bilinear_points_bwd.launches += 1
     return dimage
 

@@ -42,6 +42,7 @@ from mm_masking_tpu_torch.ops.kernels.conv_probes import (
     SMEM_LIMIT,
     SMEM_TWO,
     W_TILES,
+    mma_smem_bytes,
     pick_size,
 )
 from mm_masking_tpu_torch.ops.kernels.conv2d import (
@@ -584,7 +585,7 @@ def test_probe_tiles_fit_the_shared_memory(cuda):
     """The tiles the host picks from the sources' own block sizes."""
     lib = library()
     nhcw, halo = lib.mm_probe_nhcw_smem_bytes, lib.mm_probe_halo_smem_bytes
-    assert pick_size(W_TILES, lambda t: nhcw(0, 16, 16, 8, t, 2), "x") == 32
+    assert pick_size(W_TILES, lambda t: nhcw(0, 16, 16, 8, t, 2), "x") == 64
     # 320², 32 -> 32, TH 8, f32: a whole-width tile would need far more.
     assert pick_size(W_TILES, lambda t: nhcw(0, 32, 32, 8, t, 4), "x") == 16
     assert SMEM_TWO < nhcw(0, 32, 32, 8, 16, 4) <= SMEM_LIMIT
@@ -597,6 +598,12 @@ def test_probe_tiles_fit_the_shared_memory(cuda):
     assert pick_size(W_TILES, lambda t: halo(16, 16, 16, t, 2), "x") == 32
     assert pick_size(W_TILES, lambda t: halo(16, 16, 32, t, 2), "x") == 32
     assert SMEM_TWO < halo(16, 16, 32, 32, 2) <= SMEM_LIMIT
+    # P1 in bf16 (the tensor cores' stack): the source's bytes are the
+    # layout's sum, and every P1 and P2 full shape takes a tile.
+    for c in CHECKS["P1"] + TIMES["P1"] + TIMES["P2"]:
+        for t in W_TILES:
+            assert nhcw(0, c.Ci, c.Co, c.TH, t, 2) == mma_smem_bytes(c.Ci, c.Co, c.TH, t)
+        pick_size(W_TILES, lambda t: nhcw(0, c.Ci, c.Co, c.TH, t, 2), c.label)
     flat = lib.mm_probe_flat_smem_bytes
     assert pick_size(LANE_CHUNKS, lambda c: flat(16, 16, 640, c, 2), "x") == 1024
     # tap-dots builds no im2col stack, so it takes a wider tile than full.
@@ -714,6 +721,51 @@ def test_bilinear_points_bwd_kernel_matches_plain(cuda, N, H, W, P, dtype):
         assert ((got.double() - ref).abs() <= limit).all()
 
 
+def edge_case(cuda, N, H, W, P, dtype, seed=33):
+    """A lookup whose points straddle the kernel's bin edges (columns
+    k·BIN_W − 1 | k·BIN_W, rows k·BIN_H − 1 | k·BIN_H) and the image's
+    border, some exactly on an edge pixel, every seventh a pad point at
+    (−100, −100); and a cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    xs = torch.tensor([k * resample.BIN_W - 1.0 for k in range(W // resample.BIN_W + 1)]
+                      + [-1.0, W - 1.0])
+    ys = torch.tensor([k * resample.BIN_H - 1.0 for k in range(H // resample.BIN_H + 1)]
+                      + [-1.0, H - 1.0])
+    ix = xs[torch.randint(len(xs), (N, P), generator=g)] + torch.rand(N, P, generator=g)
+    iy = ys[torch.randint(len(ys), (N, P), generator=g)] + torch.rand(N, P, generator=g)
+    ix[:, 1::5], iy[:, 2::5] = ix[:, 1::5].ceil(), iy[:, 2::5].ceil()
+    coords = torch.stack([ix / (W - 1) * 2 - 1, iy / (H - 1) * 2 - 1], -1)
+    coords[:, ::7] = -100.0
+    image = torch.rand(N, H, W, generator=g)
+    dout = torch.randn(N, P, generator=g)
+    return (t.to(cuda, dtype) for t in (image, coords, dout))
+
+
+LOOKUP_CASES = [("random", 16, 640, 640, 4096), ("random", 3, 70, 130, 300),
+                ("edges", 4, 250, 390, 2000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,N,H,W,P", LOOKUP_CASES)
+def test_bilinear_points_bwd_is_the_ordered_sum(cuda, kind, N, H, W, P, dtype):
+    """The lookup's image-gradient kernel equal bit for bit to its ordered
+    reference (every pixel's taps added in ascending point order in
+    float32, rounded once), twice: at the train step's shape, a ragged one
+    and one whose points straddle the tile edges and the border. Its
+    binning equals the plain binning: each bin's list, in ascending p."""
+    make = edge_case if kind == "edges" else lookup_case
+    image, coords, dout = make(cuda, N, H, W, P, dtype)
+    got, lists, starts = resample._lookup_bwd_kernel(dout, image, coords, True)
+    again = resample.bilinear_points_bwd(dout, image, coords)
+    want = resample.bilinear_points_bwd_ordered(dout, image, coords)
+    assert got.dtype == dtype and torch.equal(got, want) and torch.equal(got, again)
+    want_lists, want_starts = resample.bin_points_plain(coords, H, W)
+    assert torch.equal(starts, want_starts)
+    used = torch.arange(lists.shape[-2], device=cuda) < starts[:, -1:, :].transpose(1, 2)
+    points = lists.view(torch.int32)[..., 3]
+    assert torch.equal(points[used], want_lists[used]) and (want_lists[~used] == -1).all()
+
+
 def train_chain(trainer, batch, state, steps=3):
     """``steps`` train steps from ``state``: every tensor a step updates
     (parameters, Adam moments, counters), each step's loss and grad_norm,
@@ -769,19 +821,38 @@ P3_BF16 = (TIMES["P3"] + CHECKS["P3"]
            + [Case("P3", 2, 40, 130, 3, 5, 8), Case("P3", 1, 16, 64, 40, 72, 8, relu=True)])
 
 
-@pytest.mark.parametrize("case", P3_BF16, ids=lambda c: c.label.replace(" ", "-"))
-def test_p3_bf16_matches_plain_and_float64(cuda, case):
-    """P3's bfloat16 tensor-core kernel against its plain version within
-    1e-2 of max |y| (one rounding of the output to 8 bits), and elementwise
-    against a float64 conv of the same bf16 values within 2^-8 |y64| +
-    1e-5 max |y64|, as K2's bfloat16 kernel is held."""
+def hold_bf16_tensor_cores(cuda, case):
+    """A bfloat16 tensor-core probe kernel, launched once, against its plain
+    version within 1e-2 of max |y| (one rounding of the output to 8 bits),
+    and elementwise against a float64 conv of the same bf16 values within
+    2^-8 |y64| + 1e-5 max |y64|, as K2's bfloat16 kernel is held."""
     x, k = inputs(case, torch.bfloat16, cuda)
     run, plain, to_nchw = calls(case, x, k)
     reset_launch_counts()
     got = run()
-    assert launch_counts()["conv3x3_nhcw_v2"] == 1
+    assert launch_counts()[COUNTER.get(case.probe, f"conv3x3_nhcw_run:{case.variant}")] == 1
     assert rel_err(got, plain()) <= 1e-2
     ref = torch.nn.functional.conv2d(x.double(), k.permute(3, 2, 0, 1).double(), padding=1)
     ref = torch.relu(ref) if case.relu else ref
     limit = 2.0 ** -8 * ref.abs() + 1e-5 * ref.abs().max()
     assert ((to_nchw(got).double() - ref).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("case", P3_BF16, ids=lambda c: c.label.replace(" ", "-"))
+def test_p3_bf16_matches_plain_and_float64(cuda, case):
+    """P3's bfloat16 tensor-core kernel (hold_bf16_tensor_cores)."""
+    hold_bf16_tensor_cores(cuda, case)
+
+
+# P1's bfloat16 kernel (P2's full) at every P1 and P2 timing shape and check
+# shape, and past them: a ragged W with Ci 3 and Co 5, Ci 40 (K = 360, three
+# groups of fresh sums) with Co 72 (two channel groups) under ReLU.
+P1_BF16 = (TIMES["P1"] + [c for c in TIMES["P2"] if c.variant == "full"] + CHECKS["P1"]
+           + [Case("P1", 2, 40, 130, 3, 5, 8), Case("P1", 1, 16, 64, 40, 72, 8, relu=True)])
+
+
+@pytest.mark.parametrize("case", P1_BF16, ids=lambda c: c.label.replace(" ", "-"))
+def test_p1_bf16_matches_plain_and_float64(cuda, case):
+    """P1's bfloat16 tensor-core kernel, also as P2's full
+    (hold_bf16_tensor_cores)."""
+    hold_bf16_tensor_cores(cuda, case)

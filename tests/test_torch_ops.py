@@ -19,6 +19,7 @@ from mm_masking_tpu_torch import config as tcfg
 from mm_masking_tpu_torch import geom as tgeom
 from mm_masking_tpu_torch import ops as tops
 from mm_masking_tpu_torch.models.unet import upsample_bilinear_align_corners
+from mm_masking_tpu_torch.ops.kernels import resample
 
 ATOL = 1e-5
 
@@ -247,3 +248,93 @@ def test_grid_sample_points_gives_the_coordinates_gradient():
                                           align_corners=True)[:, 0, :, 0]
     (want,) = torch.autograd.grad(ref, c2, cot)
     assert torch.equal(got, want)
+
+
+def edge_lookup_inputs(rng, N=2, H=170, W=300, P=640):
+    """Image (N, H, W), normalised points (N, P, 2) and a cotangent for the
+    lookup backward's ordered reference and binning: points straddling the
+    kernel's bin edges (columns k·BIN_W − 1 | k·BIN_W, rows k·BIN_H − 1 |
+    k·BIN_H) and the image's border, some on an edge pixel exactly, some
+    uniform over and around the image, copies (every tap coincides), and
+    every seventh a pad point at (−100, −100)."""
+    xs = [k * resample.BIN_W - 1.0 for k in range(W // resample.BIN_W + 1)] + [-1.0, W - 1.0]
+    ys = [k * resample.BIN_H - 1.0 for k in range(H // resample.BIN_H + 1)] + [-1.0, H - 1.0]
+    ix = rng.choice(xs, (N, P)) + rng.random((N, P))
+    iy = rng.choice(ys, (N, P)) + rng.random((N, P))
+    ix[:, 1::5], iy[:, 2::5] = np.ceil(ix[:, 1::5]), np.ceil(iy[:, 2::5])
+    ix[:, 3::5], iy[:, 3::5] = rng.uniform(-2, W + 1, (N, P))[:, 3::5], rng.uniform(
+        -2, H + 1, (N, P))[:, 3::5]
+    pts = np.stack([ix / (W - 1) * 2 - 1, iy / (H - 1) * 2 - 1], -1)
+    pts[:, P // 2:P // 2 + P // 8] = pts[:, 0:P // 8]
+    pts[:, ::7] = -100.0
+    img = rng.random((N, H, W))
+    cot = rng.standard_normal((N, P))
+    return img.astype(np.float32), pts.astype(np.float32), cot.astype(np.float32)
+
+
+def test_ordered_lookup_backward_matches_jax_vjp():
+    """The lookup backward's ordered reference (the CUDA kernel's sums in
+    plain PyTorch) against jax.vjp of the JAX lookup with respect to the
+    image, on the same numpy inputs, within 1e-6 of max |g| (the same
+    float32 products summed in another order)."""
+    img, pts, cot = edge_lookup_inputs(np.random.default_rng(26))
+    _, vjp = jax.vjp(lambda im: jops.grid_sample_points(im, jnp.asarray(pts), align_corners=True),
+                     jnp.asarray(img))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    got = resample.bilinear_points_bwd_ordered(torch.from_numpy(cot), torch.from_numpy(img),
+                                               torch.from_numpy(pts))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("shape", [(2, 170, 300, 640), (3, 13, 19, 64)])
+def test_ordered_lookup_backward_matches_float64(shape, align_corners):
+    """The ordered reference against a float64 sum of the same taps (pixel
+    coordinates and weights formed in float32 as ATen forms them, exact in
+    float64): each pixel within (n + 2)·2⁻²⁴·Σ|terms| of it, n its taps
+    (two roundings a product, one a sum), and pad points reach nothing."""
+    N, H, W, P = shape
+    img, pts, cot = edge_lookup_inputs(np.random.default_rng(27), N, H, W, P)
+    dout, image, coords = map(torch.from_numpy, (cot, img, pts))
+    got = resample.bilinear_points_bwd_ordered(dout, image, coords, align_corners)
+    cols, rows, ok, w = resample._taps(coords, H, W, align_corners)
+    flat = (torch.arange(N)[:, None, None] * H * W + rows * W + cols)[ok]
+    terms = (w.double() * dout.double()[..., None])[ok]
+    ref, mass, n = (torch.zeros(N * H * W, dtype=torch.float64).index_add_(0, flat, v)
+                    for v in (terms, terms.abs(), torch.ones_like(terms)))
+    assert ((got.double().flatten() - ref).abs() <= (n + 2) * 2.0 ** -24 * mass).all()
+    pad = coords[..., 0] == -100.0
+    assert pad.any() and not ok[pad].any()
+    no_pads = dout.masked_fill(pad, 0.0)
+    assert torch.equal(got, resample.bilinear_points_bwd_ordered(no_pads, image, coords,
+                                                                 align_corners))
+
+
+def test_lookup_binning_rule():
+    """The kernel's binning in plain PyTorch: every tap in the image is in
+    exactly one list entry, of its bin, in its point's chunk; a point's
+    taps in one bin share one entry; each bin's list ascends in p; pad
+    points are in no list; the starts bound each chunk's lists."""
+    N, H, W, P = 2, 250, 390, 700
+    img, pts, _ = edge_lookup_inputs(np.random.default_rng(28), N, H, W, P)
+    coords = torch.from_numpy(pts)
+    lists, starts = resample.bin_points_plain(coords, H, W)
+    G, bins = resample.lookup_layout(N, P, H, W)
+    assert lists.shape == (N, G, 4 * resample.CHUNK) and starts.shape == (N, bins + 1, G)
+    cols, rows, ok, _ = resample._taps(coords, H, W, True)
+    bin_of = rows // resample.BIN_H * -(-W // resample.BIN_W) + cols // resample.BIN_W
+    entries = set()
+    for n in range(N):
+        for g in range(G):
+            s = starts[n, :, g].tolist()
+            assert s[0] == 0 and s == sorted(s) and (lists[n, g, s[-1]:] == -1).all()
+            for t in range(bins):
+                ps = lists[n, g, s[t]:s[t + 1]].tolist()
+                assert ps == sorted(set(ps))
+                assert all(g * resample.CHUNK <= p < (g + 1) * resample.CHUNK for p in ps)
+                entries |= {(n, p, t) for p in ps}
+    taps = {(n, p, bin_of[n, p, j].item()) for n, p, j in ok.nonzero().tolist()}
+    assert entries == taps  # each (point, bin) once: its first tap in the bin
+    pads = (coords[..., 0] == -100.0).nonzero().tolist()
+    assert pads and not any((n, p) == (e[0], e[1]) for n, p in pads for e in entries)

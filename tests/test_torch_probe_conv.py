@@ -76,7 +76,8 @@ CASES_P1 = [(2, 32, 256, 8, 8, False), (1, 16, 128, 16, 8, False), (2, 24, 128, 
 
 
 @pytest.mark.parametrize("B,H,W,Ci,Co,relu,dtype",
-                         [(*c, "float32") for c in CASES_P1] + [(*CASES_P1[0], "bfloat16")])
+                         [(*c, "float32") for c in CASES_P1] + [(*CASES_P1[0], "bfloat16")]
+                         + [(*CASES_P1[3], "bfloat16"), (2, 16, 128, 1, 8, False, "bfloat16")])
 def test_p1_matches_probe(probes, B, H, W, Ci, Co, relu, dtype):
     x, k = data(0, B, H, W, Ci, Co)
     jx, jk, tx, tk = both(x, k, dtype)
@@ -187,6 +188,60 @@ def test_p3_bf16_refuses_a_float32_k(monkeypatch):
         cp.conv3x3_nhcw_v2(x.bfloat16(), k, TH=8)
     with pytest.raises(ValueError, match="ring=False"):
         cp.conv3x3_nhcw_v2(x, k, TH=8, ring=False)
+
+
+def test_p1_bf16_refuses_a_float32_k(monkeypatch):
+    """P1's bfloat16 kernel (and P2's full, its body) multiplies bfloat16
+    values: a bfloat16 x with a float32 k is refused before anything is
+    built or launched, rather than rounded; P2's other variants sum on the
+    CUDA cores in float32 and still take it."""
+    monkeypatch.setattr(cp, "use_kernel", lambda *t: True)  # the card's branch
+
+    def no_library():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(cp, "library", no_library)
+    x = torch.zeros(1, 16, 4, 32, dtype=torch.bfloat16)
+    k = torch.zeros(3, 3, 4, 8)
+    with pytest.raises(ValueError, match="bfloat16 k"):
+        cp.conv3x3_nhcw(x, k, TH=8)
+    xp = torch.zeros(1, 18, 4, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16 k"):
+        cp.conv3x3_nhcw_run("full", xp, cp.kmat_from_hwio(k), TH=8)
+    with pytest.raises(AssertionError, match="kernel library"):
+        cp.conv3x3_nhcw_run("row2", xp, cp.kmat_from_hwio(k), TH=8)
+
+
+@pytest.mark.parametrize("ci,co", [(1, 8), (3, 5), (16, 16), (32, 32)])
+def test_p1_bf16_weight_packing(ci, co):
+    """The weights P1's bfloat16 kernel reads: kmat (Co, 9·Ci) with K as a
+    whole in the probes' k order (di·3 + dj)·Ci + ci, zero-padded to a
+    multiple of 16 (Ci = 1: one k16 step) and Co to a multiple of 8."""
+    _, k = data(8, 1, 8, 8, ci, co)
+    kmat = cp.kmat_from_hwio(torch.from_numpy(k).bfloat16())
+    packed = cp.pack_kmat_bf16(kmat)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert packed.shape == (-(-co // 8) * 8, -(-9 * ci // 16) * 16)
+    assert torch.equal(packed[:co, :9 * ci], kmat)
+    assert not packed[co:].any() and not packed[:, 9 * ci:].any()
+    assert packed[:co, (1 * 3 + 2) * ci].equal(torch.from_numpy(k[1, 2, 0]).bfloat16())
+
+
+def test_p1_bf16_tiles_fit_the_shared_memory():
+    """Every P1 check, full-size and timing shape, and P2's full at its
+    timing shapes, takes a column tile of P1's bfloat16 kernel (the layout's
+    sum, which the source reports; ``test_torch_gpu.py`` holds the two
+    equal): two blocks an SM at each timing shape, as wide a tile as that
+    allows; none for a tile that is no whole number of 16-pixel m-tiles."""
+    shapes = (probe_conv.CHECKS["P1"] + probe_conv.FULL["P1"] + probe_conv.TIMES["P1"]
+              + [c for c in probe_conv.TIMES["P2"] if c.variant == "full"])
+    for c in shapes:
+        wt = cp._w_tile(c.W, lambda t: cp.mma_smem_bytes(c.Ci, c.Co, c.TH, t), c.label)
+        assert wt in (16, 32, 64, 128) and cp.mma_smem_bytes(c.Ci, c.Co, c.TH, wt) <= cp.SMEM_TWO
+    assert cp.mma_smem_bytes(16, 16, 8, 8) == 2**64 - 1
+    # B16 640², 16 -> 16: 64 columns at TH 8, 32 at TH 16.
+    assert cp._w_tile(640, lambda t: cp.mma_smem_bytes(16, 16, 8, t), "x") == 64
+    assert cp._w_tile(640, lambda t: cp.mma_smem_bytes(16, 16, 16, t), "x") == 32
 
 
 @pytest.mark.parametrize("ci,co", [(3, 5), (16, 16), (20, 12)])
