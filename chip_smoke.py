@@ -20,8 +20,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            one process per source; prints ptxas's registers and spills and
            the count of HMMA (tensor-core) instructions in the SASS of each
            instantiation of the conv kernels and of the dk kernels (float32
-           and bfloat16 each) and of P3's and P1's bfloat16 probe kernels,
-           and fails if one has none.
+           and bfloat16 each) and of the bfloat16 probe kernels (P1 and P2's
+           full, dot-only, row2 and tap-dots, P3, P4; not asm-only, which
+           contracts nothing), and fails if one has none.
 3. kernels each CUDA kernel against its plain PyTorch version at the
            path's shapes: the 3x3 conv's forward, dx and dk at every UNet
            stage (f32 and bf16 at B = 4 and at the train step's B = 16;
@@ -90,8 +91,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            its plain version at the probes' check shapes (f32) and at
            B = 16, 640^2, 16 -> 16 (f32 and bf16; asm-only bit for bit),
            then, with counters from 0, each timed at the probes' timing
-           shapes beside cuDNN's conv and K2; every probe kernel and variant
-           must have launched.
+           shapes beside its library call (cuDNN's conv; for asm-only the
+           copy it stores; none for dot-only) and K2, each of P2's variants
+           and P4's shapes logged with its time, yardstick and bound; every
+           probe kernel and variant must have launched.
 
 Every kernel's row carries its bound (``timing.bound_ms``: the larger of
 its operations over the H100's peak for the input type and its bytes over
@@ -244,10 +247,13 @@ def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
 
 
 # The tensor-core kernels, by a fragment of their SASS names: K2's float32
-# and bfloat16 convs, K3's float32 and bfloat16 dk, and P3's and P1's
-# bfloat16 probes.
+# and bfloat16 convs, K3's float32 and bfloat16 dk, and the bfloat16 probes:
+# P3, P1 (P2's full), P2's dot-only, row2 and tap-dots, P4. P2's asm-only
+# (probe_nhcw_asm_bf16) builds the stack and contracts nothing: exempt.
 TENSOR_CORE_KERNELS = ("conv3x3_tf32x3_kernel", "conv3x3_mma_bf16", "conv3x3_dk_mma_tf32x3",
-                       "conv3x3_dk_mma_bf16", "probe_halo_mma_bf16", "probe_nhcw_mma_bf16")
+                       "conv3x3_dk_mma_bf16", "probe_halo_mma_bf16", "probe_nhcw_mma_bf16",
+                       "probe_nhcw_dot_bf16", "probe_nhcw_row2_bf16", "probe_tapdots_mma_bf16",
+                       "probe_flat_mma_bf16")
 
 
 def check_hmma(lib) -> None:
@@ -1305,6 +1311,13 @@ def run_probes(device) -> tuple[dict, dict]:
     idle = [w for name in PROBE_ROWS for w in KERNELS[name][2] if counts[w] < 1]
     if idle:
         raise AssertionError(f"probe kernels the probe path never launched: {idle}")
+    for t in times:
+        if t["label"].split()[0] in ("P2", "P4"):
+            lib = t["library_ms"]
+            vs = ("no library call" if lib is None else
+                  f"library {lib:.4f} ms ({t['ms'] / lib:.2f}x its time)")
+            log("probes", f"{t['label']}: {t['ms']:.4f} ms, {vs}, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)")
     rows = {}
     for name, label in PROBE_ROWS.items():
         probe = label.split()[0]

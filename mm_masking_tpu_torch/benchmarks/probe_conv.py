@@ -15,9 +15,11 @@ card (the default; it raises without one) it
    must match bit for bit; ``dot-only``'s value is undefined, so only its
    shape and type are checked;
 2. times each at the probe's own timing shapes (B = 16, bfloat16) in turns
-   plain, kernel, kernel, plain, beside ``F.conv2d`` on the same data in
-   NCHW bfloat16 (cuDNN: the library call, the counterpart of the probes'
-   "xla" column) and K2 (``conv3x3_forward`` with a zero bias), with the
+   plain, kernel, kernel, plain, beside the one PyTorch call that computes
+   the same function on the same data (:func:`library_call`: for the conv
+   ``F.conv2d`` in NCHW bfloat16, cuDNN, the counterpart of the probes'
+   "xla" column; for ``asm-only`` the shifted copy it stores; none for
+   ``dot-only``) and K2 (``conv3x3_forward`` with a zero bias), with the
    rate 2·9·Ci·Co·B·H·W / time (0 for ``asm-only``, which contracts
    nothing) and the share of the bound (``timing.bound_ms``). Each timed
    kernel output is held against the timed plain output with the limits
@@ -143,6 +145,23 @@ def calls(case: Case, x: torch.Tensor, k: torch.Tensor):
             lambda: cp.conv3x3_nhcw_plain(xn, k, case.relu), lambda y: y.transpose(1, 2))
 
 
+def library_call(case: Case, x: torch.Tensor, k: torch.Tensor):
+    """The one PyTorch call that computes the case's function on x NCHW and
+    k HWIO, or None where there is none. The conv (P1, P3, P4, P2's full,
+    row2 and tap-dots): cuDNN's ``F.conv2d``. ``asm-only`` stores the im2col
+    stack's first Co rows; where Co ≤ Ci they are tap (0, 0), the padded
+    x's rows shifted one column right: ``F.pad`` of a slice. ``dot-only``'s
+    value is undefined, and no call computes it. The probe's own layout is
+    made here, outside the call."""
+    if case.variant == "dot-only" or (case.variant == "asm-only" and case.Co > case.Ci):
+        return None
+    if case.variant == "asm-only":
+        xp = F.pad(x.transpose(1, 2).contiguous(), (0, 0, 0, 0, 1, 1))
+        return lambda: F.pad(xp[:, :case.H, :case.Co, :-1], (1, 0))
+    w = k.permute(3, 2, 0, 1).contiguous()
+    return lambda: F.conv2d(x, w, padding=1)
+
+
 def io_bytes(case: Case, dtype: torch.dtype) -> int:
     """Bytes the call must move: its input read once (P2's is padded), the
     weight, the output written once."""
@@ -190,8 +209,9 @@ def check(case: Case, dtype: torch.dtype, device: torch.device) -> dict:
 
 def time_case(case: Case, device: torch.device) -> dict:
     """Kernel and plain version in turns, their last outputs held against
-    each other and ``F.conv2d`` (:func:`held`), cuDNN's conv and K2 on the
-    same bf16 data in NCHW, and the bound, all in ms."""
+    each other and ``F.conv2d`` (:func:`held`), the library call
+    (:func:`library_call`, None where there is none) and K2 on the same
+    bf16 data, and the bound, all in ms."""
     dtype = torch.bfloat16
     x, k = inputs(case, dtype, device, seed=1)
     run, plain, to_nchw = calls(case, x, k)
@@ -205,8 +225,9 @@ def time_case(case: Case, device: torch.device) -> dict:
     w = k.permute(3, 2, 0, 1).contiguous()
     bias = torch.zeros(case.Co, dtype=dtype, device=device)
     bound, bound_by = bound_ms(case.flops, io_bytes(case, dtype), dtype, matmul=True)
+    lib = library_call(case, x, k)
     return {"label": case.label, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": cuda_ms(lambda: F.conv2d(x, w, padding=1)),
+            "library_ms": None if lib is None else cuda_ms(lib),
             "k2_ms": cuda_ms(lambda: conv3x3_forward(x, w, bias)),
             "bound_ms": bound, "bound_by": bound_by,
             "tflops": case.flops / ms / 1e9, "rel": err["rel"], "rel_conv": err["rel_conv"]}
@@ -246,10 +267,11 @@ def time_all(probes, device: torch.device) -> list[dict]:
             agree = ("shape and type" if r["rel"] is None else
                      f"{r['rel']:.3e} of max|y| from the plain version"
                      + ("" if r["rel_conv"] is None else f", {r['rel_conv']:.3e} from F.conv2d"))
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
             print(f"time {r['label']} bf16: kernel {r['ms']:.3f} ms ({r['tflops']:.1f} "
                   f"TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f}% of the {r['bound_by']} "
-                  f"bound {r['bound_ms']:.4f} ms) | plain {r['plain_ms']:.3f} | cuDNN "
-                  f"{r['library_ms']:.3f} | K2 {r['k2_ms']:.3f} | held: {agree}", flush=True)
+                  f"bound {r['bound_ms']:.4f} ms) | plain {r['plain_ms']:.3f} | library "
+                  f"{lib} | K2 {r['k2_ms']:.3f} | held: {agree}", flush=True)
             recs.append(r)
     return recs
 

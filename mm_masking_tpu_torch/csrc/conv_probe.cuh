@@ -6,10 +6,10 @@
 // Every probe computes a 3x3 SAME convolution without bias as one
 // contraction over K = 9 * Ci per output, with the weight matrix
 // kmat (Co, 9 * Ci) f32 indexed k = (di * 3 + dj) * Ci + ci, the order of
-// benchmarks/probe_pallas_conv.py:102. The sums run in f32 on the CUDA cores
-// in that k order; bf16 inputs are widened exactly and each output is
-// rounded once to the input type. The bfloat16 kernels of P1 and P3, on the
-// tensor cores (conv_probe_nhcw.cu, conv_probe_halo.cu), take the copies,
+// benchmarks/probe_pallas_conv.py:102. The float32 kernels sum on the CUDA
+// cores in that k order. The bfloat16 kernels, every probe's on the
+// tensor cores (conv_probe_nhcw.cu, and the implicit GEMM of
+// conv_probe_gemm.cuh that P3, P2's tap-dots and P4 share), take the copies,
 // the ldmatrix and mma.sync wrappers and the opt-in only.
 #pragma once
 
@@ -188,7 +188,7 @@ __device__ inline void contract_x9(const T* x9, const float* ks, T* yb, int h0, 
   }
 }
 
-// ------------------------------------------- bfloat16 tensor cores (P1, P3)
+// ------------------------------------------------- bfloat16 tensor cores
 
 // n-tiles of 8 output channels a block takes: up to 8 (64 channels).
 inline int n_tiles(int Co) { return Co <= 8 ? 1 : Co <= 16 ? 2 : Co <= 32 ? 4 : 8; }

@@ -45,17 +45,19 @@ _SIGNATURES = {
     "mm_nn_argmin": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # xp, kmat, y, B, H, Ci, Co, W, TH, Wt, variant, relu, vec, stream
     "mm_probe_nhcw_f32": [_P, _P, _P] + [_I] * 10 + [_P],
-    "mm_probe_nhcw_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
-    # x, packed bf16 weights, y, B, H, Ci, Co, W, TH, Wt, padded, relu, vec,
-    # stream (P1's body in bf16 on the tensor cores)
-    "mm_probe_nhcw_mma_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    # x, packed bf16 weights, y, B, H, Ci, Co, W, TH, Wt, variant, padded,
+    # relu, vec, stream (P1's body and P2's variants in bf16 on the tensor
+    # cores)
+    "mm_probe_nhcw_mma_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
     # x, kmat, y, B, H, Ci, Co, W, TH, Wt, G, relu, vec, stream (f32); x,
     # packed bf16 weights, y, …, vec, ring, stream (bf16)
     "mm_probe_halo_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     "mm_probe_halo_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
-    # x, kmat, y, B, Ci, Co, H, W, TH, Lc, ndot, relu, vec, stream
+    # x, kmat, y, B, Ci, Co, H, W, TH, Lc, ndot, relu, vec, stream (f32); x,
+    # packed bf16 weights, y, B, Ci, Co, H, W, sub-tile rows, Wt, G, ndot,
+    # relu, vec, stream (bf16)
     "mm_probe_flat_f32": [_P, _P, _P] + [_I] * 10 + [_P],
-    "mm_probe_flat_bf16": [_P, _P, _P] + [_I] * 10 + [_P],
+    "mm_probe_flat_mma_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
     # dy, w0, w1, off, dx, outer, n_in, n_out, inner, stream (resize_bwd.cu)
     "mm_resize_bwd_f32": [_P] * 5 + [_I] * 4 + [_P],
     "mm_resize_bwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -78,10 +80,10 @@ _HOST = {
     # Ci, Co → shared bytes of one block of the bf16 conv (K2)
     "mm_conv3x3_bf16_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Shared bytes of one probe block: (variant, Ci, Co, TH, Wt, elem),
-    # (Ci, Co, TH, Wt, elem) and (Ci, Co, W, Lc, elem).
+    # (Ci, Co, TH, Wt, elem) and (Ci, Co, W, rows, tile, elem).
     "mm_probe_nhcw_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     "mm_probe_halo_smem_bytes": ([_I] * 5, ctypes.c_size_t),
-    "mm_probe_flat_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "mm_probe_flat_smem_bytes": ([_I] * 6, ctypes.c_size_t),
     # int[3] ← the lookup backward's bin rows, bin columns and points a chunk
     "mm_bilinear_points_layout": ([ctypes.POINTER(ctypes.c_int)], None),
 }

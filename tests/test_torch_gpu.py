@@ -41,8 +41,12 @@ from mm_masking_tpu_torch.ops.kernels.conv_probes import (
     LANE_CHUNKS,
     SMEM_LIMIT,
     SMEM_TWO,
+    VARIANTS,
     W_TILES,
+    flat_rows,
+    halo_smem_bytes,
     mma_smem_bytes,
+    nhcw_bf16_smem_bytes,
     pick_size,
 )
 from mm_masking_tpu_torch.ops.kernels.conv2d import (
@@ -604,10 +608,25 @@ def test_probe_tiles_fit_the_shared_memory(cuda):
         for t in W_TILES:
             assert nhcw(0, c.Ci, c.Co, c.TH, t, 2) == mma_smem_bytes(c.Ci, c.Co, c.TH, t)
         pick_size(W_TILES, lambda t: nhcw(0, c.Ci, c.Co, c.TH, t, 2), c.label)
+    # P2's variants in bf16 (row2's two-row stack, tap-dots' halo without
+    # the ring) and P3's and P4's halo (with it): the sources' bytes are the
+    # CPU sums at every shape and tile.
+    for c in CHECKS["P2"] + FULL["P2"] + TIMES["P2"] + P2_BF16:
+        v = VARIANTS.index(c.variant)
+        for t in W_TILES:
+            assert nhcw(v, c.Ci, c.Co, c.TH, t, 2) == nhcw_bf16_smem_bytes(c.variant, c.Ci, c.Co,
+                                                                           c.TH, t)
     flat = lib.mm_probe_flat_smem_bytes
-    assert pick_size(LANE_CHUNKS, lambda c: flat(16, 16, 640, c, 2), "x") == 1024
-    # tap-dots builds no im2col stack, so it takes a wider tile than full.
-    assert nhcw(4, 16, 16, 16, 32, 2) < nhcw(0, 16, 16, 16, 32, 2)
+    for c in CHECKS["P3"] + TIMES["P3"] + CHECKS["P4"] + TIMES["P4"] + P4_BF16:
+        rows = flat_rows(c.TH) if c.probe == "P4" else c.TH
+        for t in W_TILES:
+            assert flat(c.Ci, c.Co, c.W, rows, t, 2) == halo_smem_bytes(c.Ci, c.Co, rows, t, True)
+            assert halo(c.Ci, c.Co, rows, t, 2) == halo_smem_bytes(c.Ci, c.Co, rows, t, True)
+    assert pick_size(W_TILES, lambda t: flat(16, 16, 640, 8, t, 2), "x") == 64
+    # P4 in f32 keeps its lane chunks.
+    assert pick_size(LANE_CHUNKS, lambda c: flat(16, 16, 640, 16, c, 4), "x") == 256
+    # In f32, tap-dots builds no im2col stack, so it takes a wider tile than full.
+    assert nhcw(4, 16, 16, 16, 32, 4) < nhcw(0, 16, 16, 16, 32, 4)
     with pytest.raises(ValueError, match="shared memory"):
         pick_size(W_TILES, lambda t: nhcw(0, 64, 64, 32, t, 4), "P1 64->64")
 
@@ -814,6 +833,52 @@ def test_resumed_train_step_is_bitwise_equal(cuda, tmp_path, dtype):
         assert torch.equal(x, y), i
 
 
+# P2's tensor-core variants and P4's bfloat16 kernel at every timing shape
+# (P4's with ndot 1 and 3), and past them: a ragged W (no multiple of any tile, no 16-byte copies) with
+# Ci 3 and Co 5, Ci 1, Ci 3; P4 also at its check shapes, with ndot 3 and
+# with Ci 40 (three chunks of 16) and Co 72 (two channel groups) under ReLU.
+P2_BF16 = [Case("P2", B, H, W, Ci, Co, TH, variant=v) for v in ("row2", "tap-dots", "asm-only")
+           for B, H, W, Ci, Co, TH in [(c.B, c.H, c.W, c.Ci, c.Co, c.TH) for c in TIMES["P2"]
+                                        if c.variant == "full"]
+           + [(1, 16, 130, 3, 5, 8), (2, 16, 128, 1, 8, 8), (2, 16, 64, 3, 8, 8)]]
+P4_BF16 = (TIMES["P4"] + [dataclasses.replace(c, ndot=3) for c in TIMES["P4"][2:]]
+           + CHECKS["P4"] + [Case("P4", 2, 24, 130, 3, 5, 8, ndot=nd) for nd in (1, 3)]
+           + [Case("P4", 2, 16, 64, 3, 8, 16), Case("P4", 1, 16, 64, 40, 72, 8, relu=True)])
+
+
+@pytest.mark.parametrize("case", [c for c in P2_BF16 if c.variant != "asm-only"],
+                         ids=lambda c: c.label.replace(" ", "-"))
+def test_p2_bf16_matches_plain_and_float64(cuda, case):
+    """P2's row2 and tap-dots on the tensor cores (hold_bf16_tensor_cores)."""
+    hold_bf16_tensor_cores(cuda, case)
+
+
+@pytest.mark.parametrize("case", P4_BF16, ids=lambda c: c.label.replace(" ", "-"))
+def test_p4_bf16_matches_plain_and_float64(cuda, case):
+    """P4's bfloat16 kernel, P3's implicit GEMM on NCHW, ndot 1 and 3
+    (hold_bf16_tensor_cores)."""
+    hold_bf16_tensor_cores(cuda, case)
+
+
+@pytest.mark.parametrize("case", [c for c in P2_BF16 if c.variant == "asm-only"],
+                         ids=lambda c: c.label.replace(" ", "-"))
+def test_p2_asm_only_bf16_is_the_plain_copy(cuda, case):
+    """asm-only in bfloat16 builds the stack and stores its first Co rows:
+    bit for bit the plain version's copy; dot-only, on the same shape, has
+    the conv's shape and type (its value is undefined)."""
+    x, k = inputs(case, torch.bfloat16, cuda)
+    run, plain, _ = calls(case, x, k)
+    reset_launch_counts()
+    got = run()
+    assert launch_counts()["conv3x3_nhcw_run:asm-only"] == 1
+    assert torch.equal(got, plain())
+    dot = dataclasses.replace(case, variant="dot-only")
+    run, plain, _ = calls(dot, x, k)
+    got = run()
+    assert launch_counts()["conv3x3_nhcw_run:dot-only"] == 1
+    assert got.shape == plain().shape and got.dtype == torch.bfloat16
+
+
 # P3's bfloat16 kernel at every timing shape (with and without the ring) and
 # check shape, and at shapes past the probes': a ragged W with Ci 3 and Co 5,
 # and Ci 40 (three chunks of 16) with Co 72 (two channel groups) under ReLU.
@@ -825,12 +890,14 @@ def hold_bf16_tensor_cores(cuda, case):
     """A bfloat16 tensor-core probe kernel, launched once, against its plain
     version within 1e-2 of max |y| (one rounding of the output to 8 bits),
     and elementwise against a float64 conv of the same bf16 values within
-    2^-8 |y64| + 1e-5 max |y64|, as K2's bfloat16 kernel is held."""
+    2^-8 |y64| + 1e-5 max |y64|, as K2's bfloat16 kernel is held; a second
+    run equal bit for bit."""
     x, k = inputs(case, torch.bfloat16, cuda)
     run, plain, to_nchw = calls(case, x, k)
     reset_launch_counts()
     got = run()
     assert launch_counts()[COUNTER.get(case.probe, f"conv3x3_nhcw_run:{case.variant}")] == 1
+    assert torch.equal(run(), got)
     assert rel_err(got, plain()) <= 1e-2
     ref = torch.nn.functional.conv2d(x.double(), k.permute(3, 2, 0, 1).double(), padding=1)
     ref = torch.relu(ref) if case.relu else ref

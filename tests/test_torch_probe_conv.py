@@ -105,15 +105,24 @@ def test_p2_variants_match_probe(probes, B, H, W, Ci, Co, TH, variant):
         assert_close(got, want, "float32")
 
 
-def test_p2_bf16_matches_probe(probes):
+@pytest.mark.parametrize("variant", ["full", "row2", "tap-dots", "asm-only"])
+def test_p2_bf16_matches_probe(probes, variant):
+    """Every P2 variant with a defined value, in bfloat16: within 1e-2 of
+    max |y| (one rounding of the output to 8 bits); asm-only, a copy, exact."""
     B, H, W, Ci, Co, TH = 1, 32, 128, 16, 16, 16
     x, k = data(2, B, H, W, Ci, Co)
     xp = np.pad(x.transpose(0, 2, 1, 3), ((0, 0), (1, 1), (0, 0), (0, 0)))
     kmat = np.transpose(k, (3, 0, 1, 2)).reshape(Co, 9 * Ci)
     jxp, jkm, txp, tkm = both(xp, kmat, "bfloat16")
     with pltpu.force_tpu_interpret_mode():
-        want = probes.p2.run("full", jxp, jkm, TH, Ci, Co, W)
-    assert_close(cp.conv3x3_nhcw_run("full", txp, tkm, TH), want, "bfloat16")
+        want = probes.p2.run(variant, jxp, jkm, TH, Ci, Co, W)
+    got = cp.conv3x3_nhcw_run(variant, txp, tkm, TH)
+    if variant == "asm-only":
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
+    else:
+        assert_close(got, want, "bfloat16")
 
 
 @pytest.mark.parametrize("B,H,W,Ci,Co,TH,dtype", [
@@ -131,7 +140,8 @@ def test_p3_matches_probe(probes, B, H, W, Ci, Co, TH, dtype):
 @pytest.mark.parametrize("B,H,W,Ci,Co,TH,ndot,dtype", [
     (2, 32, 256, 8, 8, 8, 1, "float32"), (1, 32, 128, 16, 16, 16, 1, "float32"),
     (1, 32, 128, 16, 16, 16, 3, "float32"), (2, 24, 128, 1, 8, 8, 1, "float32"),
-    (1, 32, 128, 16, 16, 16, 3, "bfloat16")])
+    (1, 32, 128, 16, 16, 16, 3, "bfloat16"), (1, 32, 128, 16, 16, 16, 1, "bfloat16"),
+    (2, 24, 128, 1, 8, 8, 1, "bfloat16")])
 def test_p4_matches_probe(probes, B, H, W, Ci, Co, TH, ndot, dtype):
     x, k = data(4, B, H, W, Ci, Co)
     jx, jk, tx, tk = both(x, k, dtype)
@@ -191,10 +201,9 @@ def test_p3_bf16_refuses_a_float32_k(monkeypatch):
 
 
 def test_p1_bf16_refuses_a_float32_k(monkeypatch):
-    """P1's bfloat16 kernel (and P2's full, its body) multiplies bfloat16
-    values: a bfloat16 x with a float32 k is refused before anything is
-    built or launched, rather than rounded; P2's other variants sum on the
-    CUDA cores in float32 and still take it."""
+    """P1's bfloat16 kernel (and P2's variants, on the tensor cores too)
+    multiplies bfloat16 values: a bfloat16 x with a float32 k is refused
+    before anything is built or launched, rather than rounded."""
     monkeypatch.setattr(cp, "use_kernel", lambda *t: True)  # the card's branch
 
     def no_library():
@@ -208,8 +217,30 @@ def test_p1_bf16_refuses_a_float32_k(monkeypatch):
     xp = torch.zeros(1, 18, 4, 32, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16 k"):
         cp.conv3x3_nhcw_run("full", xp, cp.kmat_from_hwio(k), TH=8)
-    with pytest.raises(AssertionError, match="kernel library"):
+    with pytest.raises(ValueError, match="row2: the bfloat16 kernel takes a bfloat16 k"):
         cp.conv3x3_nhcw_run("row2", xp, cp.kmat_from_hwio(k), TH=8)
+
+
+@pytest.mark.parametrize("probe", list(cp.VARIANTS) + ["P4 ndot1", "P4 ndot3"])
+def test_p2_and_p4_bf16_refuse_a_float32_k(monkeypatch, probe):
+    """Every P2 variant and P4 in bfloat16 run on the tensor cores, whose
+    products are of bfloat16 values: a float32 k (kmat) with a bfloat16 x
+    raises before anything is built or launched."""
+    monkeypatch.setattr(cp, "use_kernel", lambda *t: True)  # the card's branch
+
+    def no_library():
+        raise AssertionError("the wrapper reached the kernel library")
+
+    monkeypatch.setattr(cp, "library", no_library)
+    k = torch.zeros(3, 3, 4, 4)
+    with pytest.raises(ValueError, match="the bfloat16 kernel takes a bfloat16 k, got "
+                                         "torch.float32"):
+        if probe.startswith("P4"):
+            x = torch.zeros(1, 4, 16, 32, dtype=torch.bfloat16)
+            cp.conv3x3_flat(x, k, TH=8, ndot=int(probe[-1]))
+        else:
+            xp = torch.zeros(1, 18, 4, 32, dtype=torch.bfloat16)
+            cp.conv3x3_nhcw_run(probe, xp, cp.kmat_from_hwio(k), TH=8)
 
 
 @pytest.mark.parametrize("ci,co", [(1, 8), (3, 5), (16, 16), (32, 32)])
@@ -242,6 +273,79 @@ def test_p1_bf16_tiles_fit_the_shared_memory():
     # B16 640², 16 -> 16: 64 columns at TH 8, 32 at TH 16.
     assert cp._w_tile(640, lambda t: cp.mma_smem_bytes(16, 16, 8, t), "x") == 64
     assert cp._w_tile(640, lambda t: cp.mma_smem_bytes(16, 16, 16, t), "x") == 32
+
+
+def test_p2_p4_bf16_tiles_fit_the_shared_memory():
+    """Every P2 variant's and P4's bfloat16 check, full-size and timing shape
+    takes a tile of its tensor-core kernel (the layouts' sums, which the
+    sources report; ``test_torch_gpu.py`` holds the two equal), two blocks
+    an SM at each timing shape: row2's stack buffers hold two rows, tap-dots
+    is P3's halo GEMM without the ring, P4 the same with the ring over
+    sub-tiles of ``flat_rows(TH)`` rows."""
+    def fits(c, smem):
+        wt = cp._w_tile(c.W, smem, c.label)
+        assert wt in (16, 32, 64, 128), c.label
+        return wt, smem(wt)
+
+    p2 = probe_conv.CHECKS["P2"] + probe_conv.FULL["P2"] + probe_conv.TIMES["P2"]
+    for c in p2:
+        wt, nbytes = fits(c, lambda t: cp.nhcw_bf16_smem_bytes(c.variant, c.Ci, c.Co, c.TH, t))
+        assert nbytes <= cp.SMEM_TWO, c.label
+    p4 = probe_conv.CHECKS["P4"] + probe_conv.FULL["P4"] + probe_conv.TIMES["P4"]
+    for c in p4:
+        rows = cp.flat_rows(c.TH)
+        assert c.TH % rows == 0 and rows <= 16
+        wt, nbytes = fits(c, lambda t: cp.halo_smem_bytes(c.Ci, c.Co, rows, t, ring=True))
+        assert nbytes <= cp.SMEM_TWO, c.label
+    # B16 640², 16 -> 16: row2 takes 32 columns at TH 8 (full 64), tap-dots 64
+    # at TH 8 and 32 at TH 16, P4 64 in sub-tiles of 8 rows at every TH.
+    assert cp._w_tile(640, lambda t: cp.nhcw_bf16_smem_bytes("row2", 16, 16, 8, t), "x") == 32
+    assert cp._w_tile(640, lambda t: cp.nhcw_bf16_smem_bytes("full", 16, 16, 8, t), "x") == 64
+    assert cp._w_tile(640, lambda t: cp.nhcw_bf16_smem_bytes("tap-dots", 16, 16, 8, t),
+                      "x") == 64
+    assert cp._w_tile(640, lambda t: cp.nhcw_bf16_smem_bytes("tap-dots", 16, 16, 16, t),
+                      "x") == 32
+    for th in (16, 32, 64):
+        rows = cp.flat_rows(th)
+        assert cp._w_tile(640, lambda t: cp.halo_smem_bytes(16, 16, rows, t, True), "x") == 64
+    # The sums' parts: row2 adds one row to each of the two stack buffers;
+    # the ring adds one slab slot.
+    ku = 19  # 9·16 = 144 → 9 k16 steps, 18 units, made odd
+    assert (cp.nhcw_bf16_smem_bytes("row2", 16, 16, 8, 32)
+            - cp.nhcw_bf16_smem_bytes("full", 16, 16, 8, 32)) == 2 * 32 * ku * 16
+    assert (cp.halo_smem_bytes(16, 16, 8, 64, True) - cp.halo_smem_bytes(16, 16, 8, 64, False)
+            == 10 * 16 * 80 * 2)
+    assert cp.halo_smem_bytes(16, 16, 8, 8, True) == 2**64 - 1
+
+
+@pytest.mark.parametrize("ci,co", [(8, 8), (16, 16), (16, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_asm_only_library_call_is_its_function(ci, co, dtype):
+    """asm-only's yardstick (``probe_conv.library_call``): where Co ≤ Ci the
+    stack's first Co rows are tap (0, 0), so one ``F.pad`` of the padded x
+    gives them, equal bit for bit to the plain version at P2's check and
+    timing channel counts; dot-only has no such call."""
+    case = probe_conv.Case("P2", 2, 16, 40, ci, co, 8, variant="asm-only")
+    x, k = probe_conv.inputs(case, dtype, torch.device("cpu"))
+    xp = torch.nn.functional.pad(x.transpose(1, 2).contiguous(), (0, 0, 0, 0, 1, 1))
+    want = cp.conv3x3_nhcw_run_plain("asm-only", xp, cp.kmat_from_hwio(k))
+    got = probe_conv.library_call(case, x, k)()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    dot = probe_conv.Case("P2", 2, 16, 40, ci, co, 8, variant="dot-only")
+    assert probe_conv.library_call(dot, x, k) is None
+    wide = probe_conv.Case("P2", 2, 16, 40, ci, ci + 1, 8, variant="asm-only")
+    assert probe_conv.library_call(wide, x, k) is None
+
+
+@pytest.mark.parametrize("ci,co", [(1, 8), (3, 5), (16, 16), (20, 12)])
+def test_tap_dots_bf16_weight_packing(ci, co):
+    """tap-dots in bfloat16 runs P3's halo GEMM on P2's kmat: packed from
+    kmat (Co, 9·Ci), its weights equal P3's packing of the HWIO k that
+    kmat flattens."""
+    _, k = data(9, 1, 8, 8, ci, co)
+    kt = torch.from_numpy(k).bfloat16()
+    got = cp.pack_kmat_chunks_bf16(cp.kmat_from_hwio(kt))
+    assert torch.equal(got, cp.pack_weight_bf16(kt.permute(3, 2, 0, 1), t=16))
 
 
 @pytest.mark.parametrize("ci,co", [(3, 5), (16, 16), (20, 12)])
