@@ -65,7 +65,20 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            the eval step once more with ``model.dtype="bfloat16"`` (K2's
            bfloat16 kernel): graph against eager as above, the mask within
            5e-2 of the plain path's, timed on the three paths.
-5. train   ``Trainer.train_step`` at the default ``Config()`` (dropout 0.05,
+5. refresh the eval step at bench.py's configuration (bfloat16, pt2pt,
+           ``nn_refresh_dist = 0.05``, the motion-gated solve) on the slice's
+           batch, with the stripe association (K4, items whose gate is
+           closed given no blocks) and with the dense one (K1, every item
+           searched and the select dropping it): the counters from 0 over
+           one step; the solve on the step's own weights against the gated
+           solve on the plain path (1 mm / 0.005 deg on items converged in
+           both), and logged against the same solve ungated from the batch's
+           guesses and from near ones (0.4 m, 0.1 rad), where the gate can
+           part from it as the JAX package's does; at most 10 stop-test
+           reads; the iterations and the item-iterations that skipped the
+           search; the graph-path step time and the NN kernel's device time
+           (``torch.profiler``) of the gated and the ungated step.
+6. train   ``Trainer.train_step`` at the default ``Config()`` (dropout 0.05,
            10 unrolled ICP iterations, Adam at 1e-4) on a 16-item synthetic
            batch of 4096 / 16384 points: the step captured as a CUDA graph,
            then 3 replays. The counters must show every conv forward, dx and
@@ -80,13 +93,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            host-clock step of the graph, eager and plain paths and their
            peak device memory (the graph's pool included). Then the same
            with ``model.dtype="bfloat16"``: 3 replays, finite, timed.
-6. determinism  the train step at B = 16 in float32 and in bfloat16:
+7. determinism  the train step at B = 16 in float32 and in bfloat16:
            two chains of 3 steps from one seed, on the graph path and on the
            eager kernel path, bitwise equal in parameters, Adam moments and
            counters, losses, grad_norms and the dropout generator; a step
            resumed from a checkpoint bitwise equal to the uninterrupted
            run's next step.
-7. probes  the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
+8. data    the training CLI (``train_icp_weights.main``) on a Boreas-layout
+           tree written by ``data.testing.write_synthetic_dataset`` to a
+           temporary directory at the default Config()'s widths (12 training
+           pairs of 3 frames, 32 validation frames, 400 x 3360 polar scans,
+           4096 / 16384 points, about 90 MB), with only ``data.data_dir``,
+           ``train.num_epochs=1`` and the checkpoint directory set: baseline,
+           pre-training validation, two B = 16 steps replayed from the
+           captured graph, validation, final validation; every logged number
+           finite, the checkpoints written. Then one collated batch's
+           ``preprocess_batch`` on the card against the CPU (u8/255 bit for
+           bit; the warp within its float32 conditioning, two ulps of a
+           sampling coordinate times the largest step between neighbouring
+           polar pixels), baselines 1-3,
+           ``evaluate_sequence`` and ``gt_tools.eval_localization_run`` on
+           the validation batch, their errors logged.
+9. probes  the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
            each probe kernel P1-P4 and each of P2's five variants against
            its plain version at the probes' check shapes (f32) and at
            B = 16, 640^2, 16 -> 16 (f32 and bf16; asm-only bit for bit),
@@ -111,6 +139,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -125,11 +154,28 @@ from torch.func import functional_call
 from mm_masking_tpu_torch.benchmarks import probe_conv
 from mm_masking_tpu_torch.benchmarks.timing import bound_ms, cuda_ms, graph_ms, in_turns
 from mm_masking_tpu_torch.config import Config
-from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
+from mm_masking_tpu_torch.data import (
+    ICPWeightDataset,
+    SyntheticSpec,
+    epoch_batches,
+    preprocess_batch,
+    synthetic_batch,
+)
+from mm_masking_tpu_torch.data.loader import _collate, to_tensors
+from mm_masking_tpu_torch.data.testing import write_synthetic_dataset
+from mm_masking_tpu_torch.dicp import icp
 from mm_masking_tpu_torch.dicp.icp import STOP_TEST_EVERY
-from mm_masking_tpu_torch.geom import transform_points
+from mm_masking_tpu_torch.evaluation import (
+    baselines,
+    evaluate_sequence,
+    frame_errors,
+    make_constant_weight_localizer,
+    summarize,
+)
+from mm_masking_tpu_torch.evaluation import gt_tools
+from mm_masking_tpu_torch.geom import se3_exp, transform_points
 from mm_masking_tpu_torch.models.unet import conv3x3_shapes, upsample_shapes
-from mm_masking_tpu_torch.ops import kernels
+from mm_masking_tpu_torch.ops import POLAR_SHAPE, extract_weights, kernels
 from mm_masking_tpu_torch.ops.kernels import nn_assoc, resample
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
 from mm_masking_tpu_torch.ops.kernels.conv2d import (
@@ -141,7 +187,8 @@ from mm_masking_tpu_torch.ops.kernels.conv2d import (
     conv3x3_forward,
     conv3x3_plain,
 )
-from mm_masking_tpu_torch.train import Trainer
+from mm_masking_tpu_torch.train import Trainer, train_icp_weights
+from mm_masking_tpu_torch.train.checkpoint import load_checkpoint
 
 BATCH, N_SCAN, N_MAP = 32, 4096, 16384
 TRAIN_BATCH, TRAIN_STEPS = 16, 3  # the train step's shapes (bench.py:215-243)
@@ -191,18 +238,21 @@ KERNELS = {
                             "mm_masking_tpu/ops/grid_sample.py:80", ("bilinear_points_bwd",)),
 }
 # The counted main-path runs whose launches each row sums: the eval step,
-# its dense variant and its bfloat16 run, the train steps, the bfloat16
-# train steps and the probe timing (whose bfloat16 K2 yardstick is the
-# bfloat16 K2 row's).
+# its dense variant and its bfloat16 run, the motion-gated bfloat16 eval
+# steps (stripe and dense), the train steps, the bfloat16 train steps, the
+# training CLI on a written tree (float32) and the probe timing (whose
+# bfloat16 K2 yardstick is the bfloat16 K2 row's).
+NN_PHASES = ("slice", "dense", "slice_bf16", "refresh", "refresh_dense", "train", "train_bf16",
+             "data")
 ROW_PHASES = {
-    "conv3x3": ("slice", "dense", "train"),
-    "conv3x3_dk": ("train",),
-    "conv3x3_bf16": ("slice_bf16", "train_bf16", "probes"),
+    "conv3x3": ("slice", "dense", "train", "data"),
+    "conv3x3_dk": ("train", "data"),
+    "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "probes"),
     "conv3x3_dk_bf16": ("train_bf16",),
-    "nn_stripe": ("slice", "dense", "slice_bf16", "train", "train_bf16"),
-    "nn_argmin": ("slice", "dense", "slice_bf16", "train", "train_bf16"),
-    "resize_bwd": ("train", "train_bf16"),
-    "bilinear_points_bwd": ("train", "train_bf16"),
+    "nn_stripe": NN_PHASES,
+    "nn_argmin": NN_PHASES,
+    "resize_bwd": ("train", "train_bf16", "data"),
+    "bilinear_points_bwd": ("train", "train_bf16", "data"),
 }
 # Each probe's row is timed at the canonical low-channel stage (B = 16, 640^2,
 # 16 -> 16, bf16) with the probe's own default tile.
@@ -1254,7 +1304,7 @@ def bitwise(a: list, b: list) -> list[int]:
 
 
 def run_determinism(device, cfg: Config) -> None:
-    """Phase 6: the train step at full width (B = 16), float32 and
+    """Phase 7: the train step at full width (B = 16), float32 and
     bfloat16, is bitwise repeatable on the card. Two chains of 3 steps from
     one seed must end in the same bits (parameters, Adam moments and
     counters, every loss and grad_norm, the dropout generator), on the graph
@@ -1299,8 +1349,276 @@ def run_determinism(device, cfg: Config) -> None:
         raise AssertionError(f"train steps not bitwise repeatable: {failed}")
 
 
+DATA_TRAIN_FRAMES = 3  # frames a training pair: 12 pairs, 36 items, two batches of 16
+DATA_VAL_FRAMES = 32  # one validation batch of 32
+
+
+def write_tree(root: str, cfg: Config) -> float:
+    """A Boreas-layout tree at full width under the default Config()'s pair
+    names (the port's fixture writer): 400 x 3360 polar scans, 4096 scan and
+    16384 map points; returns its size in MB."""
+    for i, (map_seq, loc_seq) in enumerate(cfg.train_loc_pairs):
+        write_synthetic_dataset(root, map_seq, loc_seq, n_frames=DATA_TRAIN_FRAMES,
+                                n_scan=N_SCAN, n_map=N_MAP, polar_shape=POLAR_SHAPE, seed=i)
+    for map_seq, loc_seq in cfg.val_loc_pairs:
+        write_synthetic_dataset(root, map_seq, loc_seq, n_frames=DATA_VAL_FRAMES,
+                                n_scan=N_SCAN, n_map=N_MAP, polar_shape=POLAR_SHAPE, seed=99)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs) / 1e6
+
+
+def warp_limit(polar: torch.Tensor) -> float:
+    """The polar→cartesian warp's float32 conditioning: two ulps of a
+    sampling coordinate (its pixel index, up to R − 1 along range and A + 1
+    along azimuth) times the largest step between neighbouring polar
+    pixels. The card's arithmetic (fused multiply-adds) and the CPU's may
+    round a coordinate apart by that much."""
+    A, R = polar.shape[-2:]
+    d_range = (polar[..., 1:] - polar[..., :-1]).abs().max().item()
+    d_az = (polar[:, 1:] - polar[:, :-1]).abs().max().item()
+    return 2 * 2.0 ** -23 * ((R - 1) * d_range + (A + 1) * d_az)
+
+
+def errors_line(T_pred: torch.Tensor, batch) -> str:
+    r, t = frame_errors(T_pred, batch["transforms"]["T_ml_gt"])
+    e = summarize(r.cpu().numpy(), t.cpu().numpy())
+    return (f"rot mean {e.rot_mean:.4g} (max {e.rot_max:.4g}) rad, trans mean "
+            f"{e.trans_mean:.4g} (max {e.trans_max:.4g}) m over {e.n_frames} frames")
+
+
+def run_data(device, cfg: Config) -> dict:
+    """The data path at the default Config(): a full-width tree written to a
+    temporary directory, the training CLI's ``main`` on it (baseline,
+    pre-training validation, one epoch of two graph-replayed B = 16 steps,
+    validation, final validation) with the counters from 0; one collated
+    batch's preprocessing on the card against the CPU (``warp_limit``);
+    baselines 1-3,
+    ``evaluate_sequence`` and ``gt_tools.eval_localization_run`` on the
+    validation batch. Returns the CLI run's counters."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        mb = write_tree(root, cfg)
+        log("data", f"wrote a {mb:.0f} MB tree ({len(cfg.train_loc_pairs)} training pairs of "
+            f"{DATA_TRAIN_FRAMES} frames, {DATA_VAL_FRAMES} validation frames, polar "
+            f"{POLAR_SHAPE}, {N_SCAN} / {N_MAP} points) in {time.perf_counter() - t0:.1f} s")
+        ckpt = os.path.join(root, "ckpt")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_icp_weights.main(["--set", f"data.data_dir={root}", "--set",
+                                "train.num_epochs=1", "--set", f"train.checkpoint_dir={ckpt}"])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        log("data", f"train_icp_weights.main on the tree: {time.perf_counter() - t0:.1f} s; "
+            f"launches {counts}")
+        records = [json.loads(line) for line in open(os.path.join(ckpt, "run_metrics.jsonl"))]
+        events = [r["event"] for r in records]
+        numbers = [v for r in records for k, v in r.items()
+                   if k not in ("event", "time") and isinstance(v, float)]
+        if events != ["baseline", "pretrain_val", "epoch", "final_val"]:
+            raise AssertionError(f"the CLI logged {events}")
+        if not all(math.isfinite(v) for v in numbers):
+            raise AssertionError(f"a logged number is not finite: {records}")
+        if not {"best_policy.pt", "epoch_0.pt", "config.json"} <= set(os.listdir(ckpt)):
+            raise AssertionError(f"checkpoints missing: {os.listdir(ckpt)}")
+        n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
+        # Two steps of one captured graph: the capture's warm-up and two replays.
+        if counts["conv3x3_dk"] != 3 * n_conv or counts["bilinear_points_bwd"] != 3:
+            raise AssertionError(f"expected the warm-up and 2 replays of the train step "
+                                 f"({3 * n_conv} dk launches), got {counts}")
+        epoch = records[2]
+        log("data", f"epoch loss {epoch['loss']:.6g}, grad_norm {epoch['grad_norm']:.6g} (max "
+            f"{epoch['grad_norm_max']:.6g}), val norm {epoch['acc']:.6g}; baseline "
+            f"{records[0]}; checkpoints {sorted(os.listdir(ckpt))}")
+
+        c = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, data_dir=root))
+        train_ds = ICPWeightDataset(list(c.train_loc_pairs), c, "train")
+        batch = _collate([train_ds[i] for i in range(TRAIN_BATCH)])
+        got = preprocess_batch(to_tensors(batch, device), c)["loc_data"]
+        want = preprocess_batch(to_tensors(batch, "cpu"), c)["loc_data"]
+        polar = dataclasses.replace(c, model=dataclasses.replace(
+            c.model, network_input_type="polar"))
+        planes = preprocess_batch(to_tensors(batch, "cpu"), polar)["loc_data"]
+        u8_equal = torch.equal(preprocess_batch(to_tensors(batch, device), polar)[
+            "loc_data"]["fft_data"].cpu(), planes["fft_data"])
+        warp = {k: ((got[k].cpu() - want[k]).abs().max().item(), warp_limit(planes[k]))
+                for k in ("fft_data", "fft_cfar")}
+        log("data", f"preprocess_batch B={TRAIN_BATCH} on the card vs the CPU: u8/255 bit for "
+            f"bit {u8_equal}; warp max|d| and its limit " + ", ".join(
+                f"{k} {d:.3e} (limit {lim:.3e}, max {want[k].abs().max().item():.3g})"
+                for k, (d, lim) in warp.items()))
+        if not u8_equal or any(d > lim for d, lim in warp.values()):
+            raise AssertionError("preprocess_batch on the card differs from the CPU path")
+
+        val_ds = ICPWeightDataset(list(c.val_loc_pairs), c, "test")
+        vb = next(epoch_batches(val_ds, c.train.batch_size_test, c, shuffle=False,
+                                drop_last=False, device=device))
+        vpolar = next(epoch_batches(val_ds, c.train.batch_size_test, polar, shuffle=False,
+                                    drop_last=False, device=device))
+        trainer = Trainer(c, device)
+        params = load_checkpoint(ckpt, "best_policy", map_location=device)["params"]
+        T1 = baselines.config1_unweighted_pt2pl(c, vb)
+        T2, pc2 = baselines.config2_cacfar_constant_icp(c, vpolar)
+        T3, mask3 = baselines.config3_learned_mask_icp(trainer.policy, params, vb)
+        for name, T in (("1 unweighted pt2pl", T1), ("2 CFAR peaks + constant weights", T2),
+                        ("3 learned mask", T3)):
+            if not torch.isfinite(T).all():
+                raise AssertionError(f"baseline {name}: poses not finite")
+            log("data", f"baseline {name}: {errors_line(T, vb)}")
+        n_pc = int(((pc2[..., 0] != 0) | (pc2[..., 1] != 0)).sum(1).float().mean())
+        log("data", f"baseline 2 extracted {n_pc} points a scan on average (of 4096 slots)")
+        localize = make_constant_weight_localizer(c)
+        seq = evaluate_sequence([vb], lambda b: localize(
+            b["loc_data"]["filtered_pc"], b["map_data"]["pc"], b["transforms"]["T_ml_init"]))
+        log("data", f"evaluate_sequence (constant weights): {seq.as_dict()}")
+
+        # The learned mask's estimates as a trajectory file: T_loc_map per
+        # frame (gt_eye: the map is aligned by T_ml_gt), against the CSVs.
+        est = (T3 @ vb["transforms"]["T_ml_gt"]).double().cpu().numpy()
+        stamps = vb["loc_data"]["timestamp"].tolist()
+        traj = os.path.join(root, "est_traj.txt")
+        gt_tools.write_traj_file(traj, list(est), stamps)
+        map_seq, loc_seq = c.val_loc_pairs[0]
+        stats = gt_tools.eval_localization_run(
+            traj, os.path.join(root, "vtr_data", map_seq, "applanix", "lidar_poses.csv"),
+            os.path.join(root, "vtr_data", loc_seq, "applanix", "radar_poses.csv"))
+        log("data", f"gt_tools.eval_localization_run on the learned mask's trajectory: {stats}")
+        if stats["n_frames"] != DATA_VAL_FRAMES or not all(
+                math.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"eval_localization_run: {stats}")
+    return counts
+
+
+def nn_kernel_ms(fn) -> tuple[float, int]:
+    """One call of fn under ``torch.profiler``: the summed device ms of the
+    NN kernel's launches (K1 or K4, ``nn_argmin_kernel``, and its unpack)
+    and their count."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "nn_argmin" in e.name]
+    return sum(durs) / 1e3, len(durs)
+
+
+def run_refresh(device, cfg: Config, batch) -> dict[str, dict]:
+    """The eval step at bench.py's configuration (``bench.py:215-246``:
+    bfloat16, pt2pt, ``nn_refresh_dist = 0.05``) on the slice's batch, with
+    the stripe association and with the dense one: its counters from 0; the
+    solve on the step's own weights held against the same solve ungated
+    (``nn_refresh_dist = 0``) and against the gated solve on the plain path,
+    1 mm / 0.005 deg on items converged on both, at most 10 stop-test reads;
+    the item-iterations that skipped the search; the graph-path step time
+    and the NN kernel's device time of the gated and the ungated step.
+    Returns {label: counters}."""
+    counts = {}
+    for label, overrides in (("refresh", ()), ("refresh_dense", ("nn_stripe=false",))):
+        model = dataclasses.replace(cfg.model, dtype="bfloat16", nn_refresh_dist=0.05,
+                                    icp_overrides=overrides)
+        trainer = Trainer(dataclasses.replace(cfg, model=model), device)
+        ungated = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+            model, nn_refresh_dist=0.0)), device)
+        params = trainer.init_state(seed=0).params
+        trainer.eval_step(params, batch)  # warm-up: captures the gated solve's chunk
+        ungated.eval_step(params, batch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        err, _, _ = trainer.eval_step(params, batch)
+        torch.cuda.synchronize()
+        counts[label] = kernels.launch_counts()
+        log(label, f"launches {counts[label]}; err (norm, rot, trans) {err.tolist()}")
+        if not torch.isfinite(err).all():
+            raise AssertionError(f"{label}: the eval step's error is not finite")
+
+        loc, mp, T0 = batch["loc_data"], batch["map_data"], batch["transforms"]["T_ml_init"]
+        icp_cfg = dataclasses.replace(trainer.policy._icp_inference, dim=2)
+        with torch.inference_mode():
+            mask = trainer.policy.apply(params, loc, mp, T0, mask_only=True)
+            w, _ = extract_weights(mask, loc["raw_pc"], cart_resolution=cfg.model.cart_resolution,
+                                   cart_pixel_width=cfg.model.cart_pixel_width)
+            args = (loc["filtered_pc"], mp["pc"], T0)
+            gated = icp(*args, weight=w, cfg=icp_cfg)
+            flat = icp(*args, weight=w, cfg=dataclasses.replace(icp_cfg, nn_refresh_dist=0.0))
+            with kernels.plain_versions():
+                plain = icp(*args, weight=w, cfg=icp_cfg)
+            searched = count_searches(args, w, icp_cfg)
+        iters = int(gated["iterations"])
+        B = len(T0)
+        log(label, f"gated solve: {iters} iterations (ungated {int(flat['iterations'])}, plain "
+            f"path {int(plain['iterations'])}), {gated['stop_tests']} stop-test reads; "
+            f"{B * iters - searched} of {B * iters} item-iterations skipped the search "
+            f"({int((gated['delta_norm'] < 1e-5).sum())}/{B} items converged)")
+        if gated["stop_tests"] > math.ceil(cfg.model.inference_max_iter / STOP_TEST_EVERY):
+            raise AssertionError(f"{label}: {gated['stop_tests']} stop-test reads")
+        # The gated solve is held to its plain path. Against the ungated
+        # solve it is logged: an item whose gate stays closed converges on the
+        # correspondences of its last search, and on this dense map that can
+        # be far from where the ungated solve crawls to, in the JAX package
+        # alike (tests/test_torch_refresh.py); the JAX package bounds the
+        # two only on converging scenes (tests/test_icp.py:385).
+        hold_poses(label, "gated vs plain path", gated, plain)
+        hold_poses(label, "gated vs ungated (logged)", gated, flat, limit=False)
+        g = torch.Generator().manual_seed(27)
+        xi = torch.zeros(B, 6)
+        xi[:, :2] = (torch.rand(B, 2, generator=g) * 2 - 1) * 0.4
+        xi[:, 5] = (torch.rand(B, generator=g) * 2 - 1) * 0.1
+        near = (se3_exp(xi).to(device) @ batch["transforms"]["T_ml_gt"]).contiguous()
+        with torch.inference_mode():
+            args = (loc["filtered_pc"], mp["pc"], near)
+            near_gated = icp(*args, weight=w, cfg=icp_cfg)
+            near_flat = icp(*args, weight=w,
+                            cfg=dataclasses.replace(icp_cfg, nn_refresh_dist=0.0))
+        log(label, f"from near guesses (x, y within 0.4 m, yaw within 0.1 rad of T_ml_gt): "
+            f"gated {int(near_gated['iterations'])} iterations, ungated "
+            f"{int(near_flat['iterations'])}")
+        hold_poses(label, "gated vs ungated from near guesses (logged)", near_gated, near_flat,
+                   limit=False)
+        for name, t in (("gated", trainer), ("ungated", ungated)):
+            ms = host_ms(lambda: t.eval_step(params, batch), reps=5)
+            nn_ms, n_nn = nn_kernel_ms(lambda: t.eval_step(params, batch))
+            log(label, f"{name} eval_step B={B} bf16, graph path, host clock: {spread(ms)}; "
+                f"NN kernel {nn_ms:.3f} ms of the card in {n_nn} launches")
+        del trainer, ungated
+    return counts
+
+
+def hold_poses(label: str, what: str, got: dict, ref: dict, limit: bool = True) -> None:
+    """Two solves' poses on the items converged in both: logged, and held
+    within 1 mm / 0.005 deg (with ``limit``; then some item must have
+    converged in both)."""
+    conv = (got["delta_norm"] < 1e-5) & (ref["delta_norm"] < 1e-5)
+    dt = (got["T"][:, :3, 3] - ref["T"][:, :3, 3]).norm(dim=-1)
+    dyaw = yaw_deg(got["T"][:, :3, :3] @ ref["T"][:, :3, :3].transpose(1, 2)).abs()
+    close = conv & (dt <= 1e-3) & (dyaw <= 5e-3)
+    log(label, f"{what}: {int(conv.sum())}/{len(conv)} items converged in both, "
+        f"{int(close.sum())} of them within 1 mm / 0.005 deg: max |dt|={most(dt[conv]):.3e} "
+        f"m, max |dyaw|={most(dyaw[conv]):.3e} deg")
+    if limit and (not conv.any() or most(dt[conv]) > 1e-3 or most(dyaw[conv]) > 5e-3):
+        raise AssertionError(f"{label}, {what}: poses differ beyond 1 mm / 0.005 deg")
+
+
+def count_searches(args, w, icp_cfg) -> int:
+    """The gated solve run eagerly with each association's ``refresh`` (the
+    gate ``need``) summed: the item-iterations that searched the map."""
+    icp_module = sys.modules["mm_masking_tpu_torch.dicp.icp"]
+    total, orig = [], icp_module._associate
+
+    def spy(inp, p, cfg, stripe, refresh=None):
+        if refresh is not None:
+            total.append(refresh.sum())
+        return orig(inp, p, cfg, stripe, refresh)
+
+    icp_module._associate = spy
+    try:
+        with kernels.eager():
+            icp(*args, weight=w, cfg=icp_cfg)
+    finally:
+        icp_module._associate = orig
+    return int(torch.stack(total).sum())
+
+
 def run_probes(device) -> tuple[dict, dict]:
-    """Phase 7, the conv-probe path: the checks, then the timing with the
+    """Phase 9, the conv-probe path: the checks, then the timing with the
     counters from 0; returns (those counters, {row: measured numbers})."""
     checks = probe_conv.check_all(probe_conv.PROBES, device)
     kernels.reset_launch_counts()
@@ -1382,10 +1700,13 @@ def main() -> int:
     bf16_params = bf16_trainer.init_state(seed=0).params
     bf16_slice_counts, bf16_solve = run_slice(bf16_trainer, bf16_params, batch, "slice_bf16")
     bf16_eval_times = time_eval(bf16_trainer, bf16_params, batch, "slice_bf16")
-    del batch, bf16_trainer, bf16_params
+    del bf16_trainer, bf16_params
+    refresh_counts = run_refresh(device, cfg, batch)
+    del batch
     train_counts, train = run_train(device, cfg)
     bf16_counts, train_bf16 = run_train_bf16(device, cfg)
     run_determinism(device, cfg)
+    data_counts = run_data(device, cfg)
     probe_counts, probes = run_probes(device)
 
     # launches: the sum over the counted main-path runs of ROW_PHASES.
@@ -1425,7 +1746,8 @@ def main() -> int:
                         ("conv3x3_dk_bf16", seq_bound(works16["dk"]))):
         measured[name]["bound_ms"], measured[name]["bound_by"] = bound
     phases = {"slice": counts, "dense": dense_counts, "slice_bf16": bf16_slice_counts,
-              "train": train_counts, "train_bf16": bf16_counts, "probes": probe_counts}
+              **refresh_counts, "train": train_counts, "train_bf16": bf16_counts,
+              "data": data_counts, "probes": probe_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

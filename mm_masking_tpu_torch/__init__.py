@@ -7,9 +7,11 @@ inputs. Plain tensor code is PyTorch; each Pallas kernel of the JAX package
 becomes a CUDA C++ kernel for Hopper under ``csrc/``, built with ``nvcc`` at
 first use and bound through ``ctypes`` (``ops/kernels``).
 
-This slice covers the policy's inference step: batch-global normalisation →
-UNet mask → per-point weight lookup → tolerance-stopped stripe ICP → error
-triple (``train.trainer.Trainer.eval_step``).
+Ported so far: the policy's inference and train steps (batch-global
+normalisation → UNet mask → per-point weight lookup → stripe ICP → error
+triple or loss, ``train.trainer.Trainer``), the motion-gated eval solve,
+the data path over the converted Boreas layout (``data``) and the
+evaluation harness (``evaluation``).
 
 Geometry runs in float32: TF32 is switched off for matmuls and for cuDNN
 convolutions at import, because reduced-precision distances pick wrong

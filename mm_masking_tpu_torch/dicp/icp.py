@@ -1,11 +1,14 @@
 """Batched ICP, point-to-point and point-to-plane.
 
-Counterpart of ``mm_masking_tpu.dicp.icp`` for ``nn_refresh_dist == 0``, in
-its two modes:
+Counterpart of ``mm_masking_tpu.dicp.icp``, in its two modes:
 
 - ``differentiable=False`` (inference): the tolerance-stopped Gauss-Newton
-  loop that associates every iteration and freezes each batch item the
-  moment its update drops under tolerance;
+  loop. With ``nn_refresh_dist == 0`` it associates every iteration and
+  freezes each batch item the moment its update drops under tolerance; with
+  ``nn_refresh_dist > 0`` (motion-gated refresh) it steps every item until
+  the largest update drops under tolerance, and an item searches the map
+  again only once its pose has moved ``nn_refresh_dist`` since its last
+  search (rotation at the lever arm ``nn_refresh_range``);
 - ``differentiable=True`` (training): ``max_iterations`` unrolled GN steps
   with no early exit, differentiable in the per-point weights (∂T/∂weight is
   the signal that trains the mask). The association is discrete and taken
@@ -311,12 +314,9 @@ def icp(
     ``cfg.differentiable``, {'T' (B, 4, 4), 'delta_norms' (max_iterations,
     B)}; otherwise {'T', 'iterations' (int64 tensor), 'delta_norm' (B,),
     'stop_tests' (int, the host's reads of the stop test)}.
-    ``cfg.remat_iters`` is a memory knob of the JAX package and is ignored.
+    ``cfg.remat_iters`` is a memory knob of the JAX package and is ignored,
+    and the differentiable solve ignores ``cfg.nn_refresh_dist``, as JAX's.
     """
-    if cfg.nn_refresh_dist > 0.0 and not cfg.differentiable:
-        raise NotImplementedError(
-            "motion-gated NN refresh (nn_refresh_dist > 0) is not ported yet: "
-            "ROADMAP.md queue 1, 'Motion-gated refresh'")
     source = source[..., :3]
     stripe = cfg.nn_stripe
     if stripe is None:
@@ -367,7 +367,8 @@ def _step_args(inp: dict, cfg: ICPConfig) -> dict:
 def _associate(inp: dict, p: torch.Tensor, cfg: ICPConfig, stripe: bool,
                refresh: torch.Tensor | None = None) -> torch.Tensor:
     """Nearest map row of each transformed source point p: the sorted stripe
-    (items with ``refresh`` False do no search) or dense."""
+    (items with ``refresh`` False do no search) or dense (every item
+    searches)."""
     if not stripe:
         return nn_argmin(p, inp["target_pts"], inp["q4"])[0]
     return nn_argmin_stripe_presorted(
@@ -378,11 +379,15 @@ def _associate(inp: dict, p: torch.Tensor, cfg: ICPConfig, stripe: bool,
 
 def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
     """n iterations of the tolerance-stopped solve, in place on its state
-    ``st`` (T, dn, idx, done = iterations taken, iterations = those in which
-    any item still ran). An item runs while its last update's stop magnitude
-    is at least the tolerance and fewer than ``max_iterations`` have been
-    taken; a stopped item keeps T, dn and idx, so an iteration in which no
-    item runs changes nothing but ``done``."""
+    ``st`` (T, dn, idx, moved, done = iterations taken, iterations = those
+    in which the solve ran); with ``cfg.nn_refresh_dist > 0`` the gated
+    loop of :func:`_iterate_gated`. An item runs while its last update's
+    stop magnitude is at least the tolerance and fewer than
+    ``max_iterations`` have been taken; a stopped item keeps T, dn and idx,
+    so an iteration in which no item runs changes nothing but ``done``."""
+    if cfg.nn_refresh_dist > 0.0:
+        _iterate_gated(st, inp, cfg, stripe, n)
+        return
     step_args = _step_args(inp, cfg)
     for _ in range(n):
         T = st["T"]
@@ -399,10 +404,40 @@ def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
         st["done"].add_(1)
 
 
+def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
+    """n iterations of the motion-gated solve (JAX ``icp.py:584-645``). The
+    solve runs while the largest stop magnitude is at least the tolerance
+    and fewer than ``max_iterations`` have been taken (``go``, a scalar on
+    the device); while it runs, every item steps and overwrites its dn,
+    converged ones included. An item searches the map only when ``need``:
+    at the first iteration, or once its accumulated worst-case point motion
+    ``moved`` reaches ``nn_refresh_dist``; the others keep their cached idx
+    (the stripe call gives them no blocks; the dense search runs for all
+    and the select drops it). Once ``go`` is false no item searches and
+    nothing changes but ``done``."""
+    step_args = _step_args(inp, cfg)
+    for _ in range(n):
+        T = st["T"]
+        go = (st["done"] < cfg.max_iterations) & (st["dn"].amax() >= cfg.tolerance)
+        need = go & ((st["done"] == 0) | (st["moved"] >= cfg.nn_refresh_dist))
+        idx_new = _associate(inp, transform_points(T, inp["source"]), cfg, stripe, need)
+        st["idx"].copy_(torch.where(need[:, None], idx_new, st["idx"]))
+        T_new, delta = _gn_step(T, idx=st["idx"], **step_args)
+        motion = (torch.linalg.vector_norm(delta[:, :3], dim=-1)
+                  + cfg.nn_refresh_range * torch.linalg.vector_norm(delta[:, 3:], dim=-1))
+        moved = torch.where(need, 0.0, st["moved"]) + motion
+        st["T"].copy_(torch.where(go, T_new, T))
+        st["dn"].copy_(torch.where(go, _stop_mag(delta, cfg), st["dn"]))
+        st["moved"].copy_(torch.where(go, moved, st["moved"]))
+        st["iterations"].add_(go)
+        st["done"].add_(1)
+
+
 def _start(st: dict, T_init: torch.Tensor) -> None:
     """Set a solve's state to its start: every item runs from T_init."""
     st["T"].copy_(T_init)
     st["dn"].fill_(float("inf"))
+    st["moved"].fill_(float("inf"))
     for name in ("idx", "done", "iterations"):
         st[name].zero_()
 
@@ -410,6 +445,7 @@ def _start(st: dict, T_init: torch.Tensor) -> None:
 def _new_state(T_init: torch.Tensor, n_points: int) -> dict:
     B, dev = T_init.shape[0], T_init.device
     st = {"T": torch.empty_like(T_init), "dn": torch.empty((B,), dtype=T_init.dtype, device=dev),
+          "moved": torch.empty((B,), dtype=T_init.dtype, device=dev),
           "idx": torch.empty((B, n_points), dtype=torch.int32, device=dev),
           "done": torch.empty((), dtype=torch.int64, device=dev),
           "iterations": torch.empty((), dtype=torch.int64, device=dev)}

@@ -1,11 +1,19 @@
-from mm_masking_tpu_torch.ops.cfar import cfar_mask
+from mm_masking_tpu_torch.ops.cfar import (
+    cfar_mask,
+    extract_pc,
+    hardshrink,
+    mean_peaks,
+    pol_2_cart_batched,
+)
 from mm_masking_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_points
 from mm_masking_tpu_torch.ops.radar import (
     CART_PIXEL_WIDTH,
     CART_RESOLUTION,
+    ENCODER_TICKS,
     POLAR_RESOLUTION,
     POLAR_SHAPE,
     form_cart_range_angle_grid,
+    load_radar,
     point_to_cart_idx,
     radar_polar_to_cartesian,
 )
@@ -14,15 +22,21 @@ from mm_masking_tpu_torch.ops.weights import WeightStats, extract_bev_from_pts, 
 __all__ = [
     "CART_PIXEL_WIDTH",
     "CART_RESOLUTION",
+    "ENCODER_TICKS",
     "POLAR_RESOLUTION",
     "POLAR_SHAPE",
     "WeightStats",
     "cfar_mask",
     "extract_bev_from_pts",
+    "extract_pc",
     "extract_weights",
     "form_cart_range_angle_grid",
     "grid_sample_2d",
     "grid_sample_points",
+    "hardshrink",
+    "load_radar",
+    "mean_peaks",
+    "pol_2_cart_batched",
     "point_to_cart_idx",
     "radar_polar_to_cartesian",
 ]

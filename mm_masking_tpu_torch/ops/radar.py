@@ -1,7 +1,8 @@
-"""Navtech radar geometry: cartesian pixel grids and the polar→cartesian warp.
+"""Navtech radar decode, cartesian pixel grids and the polar→cartesian warp.
 
 Counterpart of ``mm_masking_tpu.ops.radar`` (reference
-``radar_utils.py:258-336,374-419``): half-bin range offset, the
+``radar_utils.py:20-27,258-336,374-419``): the host-side scan decode
+(:func:`load_radar`, numpy), and on tensors the half-bin range offset, the
 searchsorted azimuth "wobble" fix, first/last-azimuth crossover padding and
 bilinear, zero-padded, align-corners sampling.
 """
@@ -18,6 +19,31 @@ POLAR_RESOLUTION = 0.0596  # m / range bin
 CART_RESOLUTION = 0.2384  # m / cartesian pixel
 CART_PIXEL_WIDTH = 640
 POLAR_SHAPE = (400, 3360)  # (azimuths, range bins)
+ENCODER_TICKS = 5600
+
+
+def load_radar(raw_data: np.ndarray, normalize: bool = True):
+    """Decode a raw Navtech scan image (host-side, numpy).
+
+    Row layout (reference ``radar_utils.py:20-27``): bytes 0-7 little-endian
+    int64 timestamp (×1000 → ns), bytes 8-9 uint16 encoder tick (× 2π/5600 →
+    rad), byte 10 validity flag (unused), columns 11+ FFT power / 255.
+
+    Returns (fft_data (A, R) float32, azimuths (A,) float64, timestamps (A,)
+    int64). With ``normalize=False`` the FFT plane stays the on-disk uint8:
+    the data loader divides it by 255 on the device.
+    """
+    raw_data = np.asarray(raw_data)
+    timestamps = np.frombuffer(raw_data[:, :8].tobytes(), dtype=np.int64) * 1000
+    azimuths = (
+        np.frombuffer(raw_data[:, 8:10].tobytes(), dtype=np.uint16)
+        * (2 * np.pi / ENCODER_TICKS)
+    )
+    if normalize:
+        fft_data = np.divide(raw_data[:, 11:], 255.0, dtype=np.float32)
+    else:
+        fft_data = np.ascontiguousarray(raw_data[:, 11:])
+    return fft_data, azimuths, timestamps
 
 
 @functools.lru_cache(maxsize=8)

@@ -3,9 +3,11 @@
 
 Counterpart of ``mm_masking_tpu.train.train_icp_weights``: every config field
 can be set as ``--set section.field=value``, and ``--synthetic`` runs the
-whole loop on generated data. It runs on the card (``--device cuda``, the
-default) and raises without one; ``--device cpu`` runs it on the CPU.
-Training on the Boreas data needs the data loader, which is not ported yet.
+whole loop on generated data. Without it the run trains on a converted
+Boreas-layout tree under ``data.data_dir`` (``ICPWeightDataset`` over
+``train_loc_pairs`` and ``val_loc_pairs``, batched by ``epoch_batches``).
+It runs on the card (``--device cuda``, the default) and raises without one;
+``--device cpu`` runs it on the CPU.
 """
 from __future__ import annotations
 
@@ -77,13 +79,29 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = apply_overrides(Config(), args.set)
+    device = resolve_device(args.device)
+    from mm_masking_tpu_torch.train.trainer import Trainer
+
     if not args.synthetic:
-        raise NotImplementedError(
-            "training on the Boreas data needs the data loader, which is not "
-            "ported yet: ROADMAP.md queue 1 item 11, 'Data loader'; use --synthetic")
+        from mm_masking_tpu_torch.data import ICPWeightDataset, epoch_batches
+
+        train_ds = ICPWeightDataset(list(cfg.train_loc_pairs), cfg, "train")
+        val_ds = ICPWeightDataset(list(cfg.val_loc_pairs), cfg, "test")
+        print(f"train samples: {len(train_ds)}, val samples: {len(val_ds)}")
+        cfg = _autofill_decay_steps(cfg, len(train_ds))
+
+        def train_batches(epoch):
+            return epoch_batches(train_ds, cfg.train.batch_size_train, cfg,
+                                 shuffle=cfg.train.shuffle, seed=epoch, device=device)
+
+        def val_batches():
+            return epoch_batches(val_ds, cfg.train.batch_size_test, cfg,
+                                 shuffle=False, drop_last=False, device=device)
+
+        Trainer(cfg, device).fit(train_batches, val_batches)
+        return
 
     from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
-    from mm_masking_tpu_torch.train.trainer import Trainer
 
     spec = SyntheticSpec(
         n_scan=cfg.data.max_loc_pts, n_map=cfg.data.max_map_pts,
@@ -96,7 +114,6 @@ def main(argv=None):
     bt, bv = cfg.train.batch_size_train, cfg.train.batch_size_test
     n_train = max(1, args.synthetic_frames // bt)
     cfg = _autofill_decay_steps(cfg, n_train * bt)
-    device = resolve_device(args.device)
 
     if args.synthetic_fixed:
         # Kept on the host; each step copies its batch to the device.

@@ -126,15 +126,112 @@ def test_chunked_inference_icp_matches_the_per_iteration_loop(monkeypatch, max_i
     assert abs(int(got["iterations"]) - int(want["iterations"])) <= (max_iterations == 50)
 
 
-@pytest.mark.parametrize("mode", ["nn_refresh", "implicit"])
+@pytest.mark.parametrize("mode", ["implicit"])
 def test_icp_refuses_unported_modes(mode):
     src, tgt, T_init, _ = scene(seed=5, B=1, N=64, M=256)
     args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if mode == "nn_refresh":
-            icp(*args, cfg=ICPConfig(differentiable=False, nn_refresh_dist=0.05))
-        else:
-            icp_implicit(*args, None, ICPConfig(differentiable=False))
+        icp_implicit(*args, None, ICPConfig(differentiable=False))
+
+
+GATED = dict(max_iterations=50, tolerance=1e-5, differentiable=False, nn_stripe_window=512,
+             nn_stripe_tile=64, nn_refresh_dist=0.05)
+
+
+@pytest.mark.parametrize("stripe", [True, False])
+@pytest.mark.parametrize("icp_type", ["pt2pt", "pt2pl"])
+def test_gated_refresh_matches_jax(icp_type, stripe):
+    """The motion-gated solve (nn_refresh_dist 0.05) against JAX's: T within
+    1e-4 m / 1e-5 rad, iterations within one, on items that stop at
+    different iterations; its gate steps every item until the largest
+    update is under tolerance, so it runs more iterations than the
+    per-item freeze of the ungated solve. pt2pl takes scene(6) of the
+    ungated parity test: the staggered scene's farthest item ends in a wrong
+    basin under pt2pl, where the two packages' float32 orders part."""
+    src, tgt, T_init, weight = staggered_scene() if icp_type == "pt2pt" else scene(seed=6)
+    cfg = dict(GATED, icp_type=icp_type, nn_stripe=stripe)
+    want = jicp(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(T_init),
+                weight=jnp.asarray(weight), cfg=JICPConfig(**cfg))
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
+    got = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(**cfg))
+    ungated = icp(*args, weight=torch.from_numpy(weight),
+                  cfg=ICPConfig(**{**cfg, "nn_refresh_dist": 0.0}))
+    T_w, T_g = np.asarray(want["T"]), got["T"].numpy()
+    assert (np.asarray(want["delta_norm"]) < 1e-5).all() and (got["delta_norm"] < 1e-5).all()
+    np.testing.assert_allclose(T_g[:, :3, 3], T_w[:, :3, 3], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(T_g[:, :3, :3], T_w[:, :3, :3], rtol=0, atol=1e-5)
+    assert abs(int(got["iterations"]) - int(want["iterations"])) <= 1
+    assert int(got["iterations"]) >= int(ungated["iterations"])
+
+
+def gated_need(src, tgt, T_init, weight, cfg) -> tuple[list, dict]:
+    """The gated solve with each stripe call's ``refresh`` recorded, and
+    the gate recomputed from the GN steps' deltas, one iteration at a time."""
+    icp_module = importlib.import_module("mm_masking_tpu_torch.dicp.icp")
+    calls = []
+    stripe_call = icp_module.nn_argmin_stripe_presorted
+
+    def spy(*a, refresh=None, **kw):
+        calls.append(refresh.clone())
+        return stripe_call(*a, refresh=refresh, **kw)
+
+    deltas = []
+    gn_step = icp_module._gn_step
+
+    def gn_spy(*a, **kw):
+        T_new, delta = gn_step(*a, **kw)
+        deltas.append(delta.clone())
+        return T_new, delta
+
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
+    with mock.patch.object(icp_module, "nn_argmin_stripe_presorted", spy), \
+            mock.patch.object(icp_module, "_gn_step", gn_spy):
+        out = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(**cfg))
+    want, moved = [], torch.full((len(src),), float("inf"))
+    for it, delta in enumerate(deltas):
+        go = it < int(out["iterations"])
+        need = (torch.full_like(moved, go, dtype=torch.bool)
+                & ((it == 0) | (moved >= cfg["nn_refresh_dist"])))
+        want.append(need)
+        motion = delta[:, :3].norm(dim=-1) + cfg["nn_refresh_range"] * delta[:, 3:].norm(dim=-1)
+        if go:
+            moved = torch.where(need, 0.0, moved) + motion
+    return list(zip(calls, want)), out
+
+
+def test_gated_stripe_call_skips_items_without_need():
+    """Every stripe call of the gated solve gets refresh = need: true at the
+    first iteration and after an item has moved nn_refresh_dist, false
+    otherwise (those items get no blocks and keep their cached idx), and
+    false for all once the solve has stopped inside a chunk."""
+    src, tgt, T_init, weight = staggered_scene()
+    cfg = dict(GATED, icp_type="pt2pt", nn_stripe=True, nn_refresh_range=80.0)
+    pairs, out = gated_need(src, tgt, T_init, weight, cfg)
+    assert len(pairs) == -(-int(out["iterations"]) // 5) * 5
+    for it, (got, want) in enumerate(pairs):
+        assert torch.equal(got, want), it
+    skipped = sum(int((~g).sum()) for g, _ in pairs[:int(out["iterations"])])
+    assert pairs[0][0].all() and skipped > len(src) * 5
+    assert not pairs[-1][0].any()
+
+
+@pytest.mark.parametrize("stripe", [True, False])
+def test_chunked_gated_solve_matches_the_per_iteration_loop(monkeypatch, stripe):
+    """The gated solve in chunks of STOP_TEST_EVERY against chunks of 1:
+    T, delta_norm and iterations bit for bit, and the stop test read at
+    most ⌈50/5⌉ times; the iterations of a chunk after the stop change
+    nothing."""
+    icp_module = importlib.import_module("mm_masking_tpu_torch.dicp.icp")
+    src, tgt, T_init, weight = staggered_scene()
+    cfg = ICPConfig(**GATED, icp_type="pt2pt", nn_stripe=stripe)
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
+    got = icp(*args, weight=torch.from_numpy(weight), cfg=cfg)
+    assert got["stop_tests"] <= math.ceil(50 / icp_module.STOP_TEST_EVERY)
+    assert int(got["iterations"]) % icp_module.STOP_TEST_EVERY
+    monkeypatch.setattr(icp_module, "STOP_TEST_EVERY", 1)
+    loop = icp(*args, weight=torch.from_numpy(weight), cfg=cfg)
+    for name in ("T", "delta_norm", "iterations"):
+        assert torch.equal(got[name], loop[name]), name
 
 
 @pytest.mark.parametrize(

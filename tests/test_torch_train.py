@@ -30,7 +30,13 @@ from mm_masking_tpu.train.loss import bce as jbce, eval_training_loss as jtrain_
 from mm_masking_tpu.train.metrics import MetricsLogger as JMetricsLogger
 from mm_masking_tpu.train.trainer import Trainer as JTrainer, make_optimizer as jmake_optimizer
 from mm_masking_tpu_torch.config import Config, LossWeights, ModelConfig, TrainConfig
-from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
+from mm_masking_tpu_torch.data import (
+    ICPWeightDataset,
+    SyntheticSpec,
+    epoch_batches,
+    synthetic_batch,
+)
+from mm_masking_tpu_torch.data.testing import write_synthetic_dataset
 from mm_masking_tpu_torch.models import UNet, params_from_flax
 from mm_masking_tpu_torch.models.policy import _safe_amax_hw
 from mm_masking_tpu_torch.train import Trainer, bce, eval_training_loss, make_optimizer
@@ -107,8 +113,6 @@ def test_unported_training_modes_raise(tmp_path):
     imp = Trainer(tiny_config(tmp_path, icp_diff_mode="implicit"), "cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         imp.policy.apply(imp.init_state(0).params, *args, train=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_icp_weights.main([])
 
 
 def test_training_forward_options(tmp_path):
@@ -374,6 +378,79 @@ def test_cli_trains_on_synthetic_data(tmp_path, fixed):
     ])
     events = [json.loads(line)["event"] for line in open(out / "run_metrics.jsonl")]
     assert events[-1] == "final_val" and "epoch" in events
+
+
+def write_default_tree(root, frames_per_pair: int = 1, val_frames: int = 4) -> Config:
+    """A Boreas-layout tree under the default Config()'s pair names, at the
+    tiny size: one frame for each training pair (12) and ``val_frames`` for
+    the validation pair."""
+    for i, (map_seq, loc_seq) in enumerate(Config().train_loc_pairs):
+        write_synthetic_dataset(str(root), map_seq, loc_seq, n_frames=frames_per_pair,
+                                n_scan=128, n_map=512, polar_shape=(64, 256), seed=i)
+    for map_seq, loc_seq in Config().val_loc_pairs:
+        write_synthetic_dataset(str(root), map_seq, loc_seq, n_frames=val_frames,
+                                n_scan=128, n_map=512, polar_shape=(64, 256), seed=99)
+    return dataclasses.replace(tiny_config(root / "ckpt"), data=dataclasses.replace(
+        Config().data, data_dir=str(root), pos_std=0.4, rot_std=0.15))
+
+
+@pytest.mark.parametrize("mask_pts", [1.0, 0.0])
+def test_dataset_fed_train_step_matches_jax(tmp_path, mask_pts):
+    """The slice as a whole: a batch of the written tree, collated and
+    preprocessed by the port's loader (int64 timestamps among its leaves),
+    through one train step of each package from the same parameters: the
+    loss within 1e-5. grad_norm is held to 1e-3 with the ICP loss terms
+    only (mask_pts 0): on this tree the mask-points BCE is ill-conditioned
+    in both packages, its largest pixels a few float32 ulps under 1 after
+    the max normalisation, where 1/(p(1−p)) moves by up to 2× with one ulp
+    of the division's rounding (ROADMAP.md §3)."""
+    cfg = dataclasses.replace(write_default_tree(tmp_path),
+                              loss=LossWeights(mask_pts=mask_pts))
+    ds = ICPWeightDataset(list(cfg.train_loc_pairs), cfg, "train")
+    assert len(ds) == 12
+    batch = next(epoch_batches(ds, 4, cfg, seed=0, device="cpu"))
+    assert batch["loc_data"]["timestamp"].dtype == torch.int64
+    assert batch["loc_data"]["fft_data"].shape == (4, 64, 64)
+    jcfg = JConfig(model=JModelConfig(**MODEL), loss=JLossWeights(mask_pts=mask_pts),
+                   train=JTrainConfig(batch_size_train=4, checkpoint_dir=str(tmp_path / "j")))
+    jtr = JTrainer(jcfg, mesh=make_mesh(1), logger=JMetricsLogger(str(tmp_path / "j")))
+    jstate = jtr.init_state()
+    jbatch_np = jax.tree_util.tree_map(lambda t: t.numpy(), batch)
+    _, jl, _, jgn = jtr._train_step(jstate, jbatch_np, mask_losses_active=True)
+    trainer = Trainer(cfg, "cpu")
+    state = trainer.init_state()
+    with torch.no_grad():
+        for k, v in params_from_flax(jstate.variables["params"]).items():
+            state.params[k].copy_(v)
+    state, loss, _, gn = trainer.train_step(state, batch)
+    assert torch.isfinite(loss) and gn.item() > 0
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    if mask_pts == 0.0:
+        np.testing.assert_allclose(gn.item(), float(jgn), rtol=1e-3)
+
+
+def test_cli_trains_on_a_written_tree(tmp_path):
+    """Without --synthetic the CLI trains on a tree in the converted layout
+    (ICPWeightDataset, epoch_batches): baseline, pre-training validation,
+    one epoch of 3 steps, final validation, checkpoints."""
+    write_default_tree(tmp_path)
+    out = tmp_path / "cli"
+    train_icp_weights.main([
+        "--device", "cpu", "--set", f"data.data_dir={tmp_path}",
+        "--set", "model.enc_channels=4,8", "--set", "model.cart_pixel_width=64",
+        "--set", "model.cart_resolution=0.5", "--set", "model.res=0.25",
+        "--set", "model.polar_shape=64,256", "--set", "model.max_iter=2",
+        "--set", "model.inference_max_iter=4", "--set", "data.pos_std=0.4",
+        "--set", "data.rot_std=0.15", "--set", "train.batch_size_train=4",
+        "--set", "train.batch_size_test=4", "--set", "train.num_epochs=1",
+        "--set", f"train.checkpoint_dir={out}",
+    ])
+    records = [json.loads(line) for line in open(out / "run_metrics.jsonl")]
+    events = [r["event"] for r in records]
+    assert events == ["baseline", "pretrain_val", "epoch", "final_val"]
+    epoch = records[2]
+    assert all(np.isfinite(epoch[k]) for k in ("loss", "grad_norm", "acc"))
+    assert {"best_policy.pt", "epoch_0.pt", "config.json"} <= set(os.listdir(out))
 
 
 def test_profile_step_runs_on_cpu(capsys):
