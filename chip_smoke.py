@@ -114,7 +114,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            polar pixels), baselines 1-3,
            ``evaluate_sequence`` and ``gt_tools.eval_localization_run`` on
            the validation batch, their errors logged.
-9. probes  the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
+9. localize the localization path at full width. (a) 32
+           polar 400 x 3360 scans of ``synthetic_batch(seed=3, …, polar)``
+           (4096 scan, 16384 map points with normals) through
+           ``localize_frame`` in 4 chunks of 8 at the default
+           ``LocalizationConfig`` (modified CA-CFAR, pt2pl, 4 + 50
+           iterations) with beta 0: with uniform weights, with a seeded
+           default-Config() policy's ``mask_for_scan`` (f32), and in
+           bfloat16; counters from 0 (K1, K2, K4), each held against the
+           plain path (uniform: equal iterations, poses within 1e-6 m /
+           1e-5 deg; masked: 1 mm / 0.005 deg on items converged in both,
+           or the plain pose a fixed point of the kernel path's solve; the
+           bf16 mask within 5e-2; matched ratio and ok equal), the median
+           translation error logged against the initial one. (b) the CLI
+           on a written tree of two 24-frame sequences of raw 400 x 3360
+           scans with Applanix CSVs: ``teach`` (8192 map points),
+           ``datagen`` (whose shards the port's ``ICPWeightDataset`` loads)
+           and ``localize`` with a seeded checkpoint, GT stats and
+           ``--init-chain``; every pose finite; the teach pass on the
+           kernels against the plain path (keyframes, 1e-4 m) and bitwise
+           across two passes; wall times, frames per second and the
+           captured ICP chunk graphs logged.
+10. probes the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
            each probe kernel P1-P4 and each of P2's five variants against
            its plain version at the probes' check shapes (f32) and at
            B = 16, 640^2, 16 -> 16 (f32 and bf16; asm-only bit for bit),
@@ -147,6 +168,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
@@ -161,6 +183,7 @@ from mm_masking_tpu_torch.data import (
     preprocess_batch,
     synthetic_batch,
 )
+from mm_masking_tpu_torch.data.boreas import yawPitchRollToRot
 from mm_masking_tpu_torch.data.loader import _collate, to_tensors
 from mm_masking_tpu_torch.data.testing import write_synthetic_dataset
 from mm_masking_tpu_torch.dicp import icp
@@ -174,6 +197,15 @@ from mm_masking_tpu_torch.evaluation import (
 )
 from mm_masking_tpu_torch.evaluation import gt_tools
 from mm_masking_tpu_torch.geom import se3_exp, transform_points
+from mm_masking_tpu_torch.localization import __main__ as localization_cli
+from mm_masking_tpu_torch.localization import pipeline as localization_pipeline
+from mm_masking_tpu_torch.localization.odometry import OdometryConfig, TeachPass
+from mm_masking_tpu_torch.localization.pipeline import (
+    LocalizationConfig,
+    localize_frame,
+    project_map,
+)
+from mm_masking_tpu_torch.models import LearnICPWeightPolicy
 from mm_masking_tpu_torch.models.unet import conv3x3_shapes, upsample_shapes
 from mm_masking_tpu_torch.ops import POLAR_SHAPE, extract_weights, kernels
 from mm_masking_tpu_torch.ops.kernels import nn_assoc, resample
@@ -240,14 +272,16 @@ KERNELS = {
 # The counted main-path runs whose launches each row sums: the eval step,
 # its dense variant and its bfloat16 run, the motion-gated bfloat16 eval
 # steps (stripe and dense), the train steps, the bfloat16 train steps, the
-# training CLI on a written tree (float32) and the probe timing (whose
-# bfloat16 K2 yardstick is the bfloat16 K2 row's).
+# training CLI on a written tree (float32), the localize phase (float32;
+# its bfloat16 mask run apart) and the probe timing (whose bfloat16 K2
+# yardstick is the bfloat16 K2 row's).
 NN_PHASES = ("slice", "dense", "slice_bf16", "refresh", "refresh_dense", "train", "train_bf16",
-             "data")
+             "data", "localize", "localize_bf16")
 ROW_PHASES = {
-    "conv3x3": ("slice", "dense", "train", "data"),
+    "conv3x3": ("slice", "dense", "train", "data", "localize"),
     "conv3x3_dk": ("train", "data"),
-    "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "probes"),
+    "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "probes",
+                     "localize_bf16"),
     "conv3x3_dk_bf16": ("train_bf16",),
     "nn_stripe": NN_PHASES,
     "nn_argmin": NN_PHASES,
@@ -1617,8 +1651,327 @@ def count_searches(args, w, icp_cfg) -> int:
     return int(torch.stack(total).sum())
 
 
+LOC_BATCH, LOC_CHUNK = 32, 8  # the batched localization: 4 chunks of 8 frames
+CLI_FRAMES, CLI_MAP_PTS = 24, 8192  # each sequence of the CLI tree; the teach map's rows
+SCAN_STEP_US = 250_000  # a Navtech sweep
+
+
+def localize_chunks(batch, policy=None, params=None) -> tuple[dict, list, torch.Tensor | None]:
+    """``localize_frame`` over the batch in chunks of ``LOC_CHUNK`` (each
+    item against its own map) at the default ``LocalizationConfig`` with
+    beta 0, with ``policy.mask_for_scan`` per chunk when given: (the
+    results, the refined solves' outputs, the masks)."""
+    loc, mp, T0 = batch["loc_data"], batch["map_data"]["pc"], batch["transforms"]["T_ml_init"]
+    cfg = LocalizationConfig(beta=0.0)
+    mkw = {}
+    if policy is not None:
+        mkw = dict(mask_cart_resolution=policy.cfg.model.cart_resolution,
+                   mask_cart_width=policy.cfg.model.cart_pixel_width)
+    pipe = localization_pipeline
+    solves, orig = [], pipe.icp
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        if not kwargs["cfg"].differentiable:
+            solves.append(out)
+        return out
+
+    outs, masks = [], []
+    pipe.icp = spy
+    try:
+        with torch.no_grad():
+            for s in range(0, len(T0), LOC_CHUNK):
+                sl = slice(s, s + LOC_CHUNK)
+                wm = None
+                if policy is not None:
+                    wm = policy.mask_for_scan(params, loc["fft_data"][sl], loc["azimuths"][sl])
+                    masks.append(wm)
+                outs.append(localize_frame(loc["fft_data"][sl], loc["azimuths"][sl],
+                                           loc["az_times"][sl], mp[sl], T0[sl], cfg,
+                                           weight_mask=wm, **mkw))
+    finally:
+        pipe.icp = orig
+    out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return out, solves, (torch.cat(masks) if masks else None)
+
+
+def restart_moves(out: dict, batch, T_from: torch.Tensor) -> torch.Tensor:
+    """How far the refined solve, restarted at T_from on out's own points and
+    weights (tolerance 1e-7), moves each item: T_from is a fixed point of it
+    where this is below 1e-4 m."""
+    cfg = LocalizationConfig(beta=0.0)
+    refined = dataclasses.replace(localization_pipeline._icp_configs(cfg)[1], tolerance=1e-7)
+    with torch.no_grad():
+        again = icp(out["points"], project_map(batch["map_data"]["pc"], cfg), T_from,
+                    weight=out["weights"], cfg=refined)["T"]
+    return (again[:, :3, 3] - T_from[:, :3, 3]).norm(dim=-1)
+
+
+def hold_localized(label: str, got, ref, batch, exact: bool) -> None:
+    """The kernel path (got = (out, solves, masks)) against the plain path:
+    with ``exact`` (uniform weights; the NN kernels are bit-identical to
+    their plain versions) equal refined iteration counts, every pose within
+    1e-6 m / 1e-5 deg, matched ratio and ok equal. Otherwise (the mask in
+    the loop, whose convs differ from cuDNN's in float32 rounding) the items
+    converged in both within 1 mm / 0.005 deg, with equal matched ratio and
+    ok; an item converged in both that parts further passes only if the
+    plain path's pose is a fixed point of the kernel path's refined solve
+    (``restart_moves`` below 1e-4 m): two converged solutions of one
+    problem, which the tests on the CPU meet against the JAX package."""
+    (out, solves, mask), (rout, rsolves, rmask) = got, ref
+    iters = [int(s["iterations"]) for s in solves]
+    riters = [int(s["iterations"]) for s in rsolves]
+    dn = torch.cat([s["delta_norm"] for s in solves])
+    rdn = torch.cat([s["delta_norm"] for s in rsolves])
+    conv = (dn < 1e-5) & (rdn < 1e-5)
+    dt = (out["T"][:, :3, 3] - rout["T"][:, :3, 3]).norm(dim=-1)
+    dyaw = (yaw_deg(out["T"][:, :3, :3]) - yaw_deg(rout["T"][:, :3, :3])).abs()
+    same_ratio = (out["matched_ratio"] == rout["matched_ratio"]) & (out["ok"] == rout["ok"])
+    log(label, f"kernel vs plain: refined iterations per chunk {iters} (plain {riters}), "
+        f"stop-test reads {[s['stop_tests'] for s in solves]}; {int(conv.sum())}/{len(conv)} "
+        f"items converged in both; max |dt| {dt.max().item():.3e} m, max |dyaw| "
+        f"{dyaw.max().item():.3e} deg (converged: {most(dt[conv]):.3e} m, "
+        f"{most(dyaw[conv]):.3e} deg); matched ratio and ok equal on "
+        f"{int(same_ratio.sum())}/{len(same_ratio)}"
+        + ("" if mask is None else f"; mask max|d| {(mask - rmask).abs().max().item():.3e}"))
+    if max(s["stop_tests"] for s in solves) > math.ceil(50 / STOP_TEST_EVERY):
+        raise AssertionError(f"{label}: more than 10 stop-test reads in a refined solve")
+    if exact:
+        if iters != riters or dt.max() > 1e-6 or dyaw.max() > 1e-5 or not same_ratio.all():
+            raise AssertionError(f"{label}: kernel and plain paths differ beyond equal "
+                                 f"iterations, 1e-6 m / 1e-5 deg and equal matched ratios")
+        return
+    held = conv & (dt <= 1e-3) & (dyaw <= 5e-3)
+    parted = conv & ~held
+    if not held.any() or not same_ratio[held].all():
+        raise AssertionError(f"{label}: no converged item within 1 mm / 0.005 deg, or their "
+                             "matched ratios differ")
+    if parted.any():
+        moved = restart_moves(out, batch, rout["T"])
+        log(label, f"items {torch.nonzero(parted).flatten().tolist()} converged in both but "
+            f"parted by {dt[parted].tolist()} m; restarting the kernel path's refined solve "
+            f"at the plain pose moves them {moved[parted].tolist()} m")
+        if (moved[parted] > 1e-4).any():
+            raise AssertionError(f"{label}: kernel and plain poses part beyond 1 mm / 0.005 deg "
+                                 "and the plain pose is no fixed point of the kernel path")
+
+
+def run_localize_batch(device, cfg: Config) -> tuple[dict, dict]:
+    """Part (a) of the localize phase: 32 polar 400 x 3360 scans (4096 scan,
+    16384 map points with normals) localized in chunks of 8 with uniform
+    weights, with a seeded default-Config() policy's mask (float32), and
+    with its bfloat16 variant; counters from 0 over each main-path run,
+    held against the plain path. Returns the float32 and bfloat16 runs'
+    summed counters."""
+    spec = SyntheticSpec(network_input_type="polar", n_scan=N_SCAN, n_map=N_MAP)
+    batch = synthetic_batch(3, LOC_BATCH, spec, device=device)
+    T0 = batch["transforms"]["T_ml_init"]
+    init_err = T0[:, :2, 3].norm(dim=-1)
+    counts = {"localize": {}, "localize_bf16": {}}
+    for label, dtype in (("uniform", None), ("mask f32", "float32"), ("mask bf16", "bfloat16")):
+        policy = params = None
+        if dtype is not None:
+            pcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+            policy = LearnICPWeightPolicy(pcfg, device)
+            params = policy.init(torch.Generator().manual_seed(0))
+        localize_chunks(batch, policy, params)  # warm-up: the refined solves' graphs
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = localize_chunks(batch, policy, params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        c = kernels.launch_counts()
+        phase = "localize_bf16" if dtype == "bfloat16" else "localize"
+        counts[phase] = {k: counts[phase].get(k, 0) + v for k, v in c.items()}
+        need = ("nn_stripe", "nn_argmin") + (() if policy is None else ("conv3x3",))
+        if any(c[k] < 1 for k in need):
+            raise AssertionError(f"localize {label}: a kernel of the path did not launch: {c}")
+        err = got[0]["T"][:, :2, 3].norm(dim=-1)
+        if not torch.isfinite(got[0]["T"]).all():
+            raise AssertionError(f"localize {label}: poses not finite")
+        log("localize", f"{label}: {LOC_BATCH} frames in chunks of {LOC_CHUNK}, graph path "
+            f"{ms:.1f} ms host clock ({1e3 * LOC_BATCH / ms:.1f} frames/s); launches "
+            f"{ {k: v for k, v in c.items() if v} }; median translation error "
+            f"{err.median().item():.4f} m (initial {init_err.median().item():.4f} m), "
+            f"matched ratio mean {got[0]['matched_ratio'].mean().item():.3f}")
+        with kernels.plain_versions():
+            ref = localize_chunks(batch, policy, params)
+        if dtype == "bfloat16":
+            mask_d = (got[2] - ref[2]).abs().max().item()
+            if mask_d > 5e-2:
+                raise AssertionError(f"localize {label}: masks differ by {mask_d} > 5e-2")
+        hold_localized(f"localize {label}", got, ref, batch, exact=policy is None)
+        del policy, params
+    return counts["localize"], counts["localize_bf16"]
+
+
+def render_scan(world: np.ndarray, T_world_robot: np.ndarray, stamp_us: int,
+                rng: np.random.Generator) -> np.ndarray:
+    """A raw Navtech scan (400 x 3360 polar, the load_radar byte layout) of
+    the world seen from T_world_robot: bright two-bin returns at each
+    point's (azimuth, range) bin over a noise floor."""
+    A, R = POLAR_SHAPE
+    Ti = np.linalg.inv(T_world_robot)
+    s = world @ Ti[:3, :3].T + Ti[:3, 3]
+    rr = np.hypot(s[:, 0], s[:, 1])
+    aa = np.mod(np.arctan2(s[:, 1], s[:, 0]), 2 * np.pi)
+    keep = (rr > 3.0) & (rr < 75.0)
+    ai = np.clip((aa[keep] / (2 * np.pi / A)).astype(int), 0, A - 1)
+    ri = np.clip((rr[keep] / 0.0596).astype(int), 0, R - 3)
+    fft = (0.05 * rng.random((A, R)) ** 2).astype(np.float32)
+    for dr, level in ((0, 0.9), (1, 0.7)):
+        fft[ai, ri + dr] = np.maximum(fft[ai, ri + dr], level)
+    img = np.zeros((A, 11 + R), np.uint8)
+    ts = stamp_us + np.arange(A, dtype=np.int64) * (SCAN_STEP_US // A)
+    img[:, :8] = np.frombuffer(ts.tobytes(), np.uint8).reshape(A, 8)
+    enc = (np.arange(A, dtype=np.float64) / A * 5600).astype(np.uint16)
+    img[:, 8:10] = np.frombuffer(enc.tobytes(), np.uint8).reshape(A, 2)
+    img[:, 11:] = np.clip(fft * 255, 0, 255).astype(np.uint8)
+    return img
+
+
+def write_loc_tree(root: str) -> dict[str, list]:
+    """One world (a ring of scatterers and four walls) and two sequences of
+    CLI_FRAMES raw scans rendered along a path (teach, and a repeat offset
+    from it), with their Applanix CSVs and identity calibration, in the
+    Boreas layout: {seq: [(stamp, x, y, heading)]}."""
+    rng = np.random.default_rng(23)
+    r, a = rng.uniform(8.0, 40.0, 2500), rng.uniform(0.0, 2 * np.pi, 2500)
+    ring = np.stack([r * np.cos(a), r * np.sin(a)], -1)
+    t = rng.uniform(-30.0, 50.0, 1500)
+    walls = np.concatenate([np.stack([t[:500], np.full(500, 18.0)], -1),
+                            np.stack([t[500:1000], np.full(500, -16.0)], -1),
+                            np.stack([np.full(250, 50.0), rng.uniform(-16, 18, 250)], -1),
+                            np.stack([np.full(250, -30.0), rng.uniform(-16, 18, 250)], -1)])
+    world = np.concatenate([ring, walls])
+    world = np.concatenate([world, np.zeros((len(world), 1))], -1)
+    rows = {"loc-teach": [(1_000_000 + SCAN_STEP_US * i, 0.5 * i, 0.02 * i, 0.004 * i)
+                          for i in range(CLI_FRAMES)],
+            "loc-repeat": [(90_000_000 + SCAN_STEP_US * i, 0.3 + 0.5 * i, 0.2 + 0.02 * i,
+                            0.02 + 0.004 * i) for i in range(CLI_FRAMES)]}
+    for seq, seq_rows in rows.items():
+        d = os.path.join(root, "vtr_data", seq)
+        for sub in ("radar", "applanix", "calib"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for name in ("T_applanix_lidar.txt", "T_radar_lidar.txt"):
+            np.savetxt(os.path.join(d, "calib", name), np.eye(4))
+        with open(os.path.join(d, "applanix", "radar_poses.csv"), "w") as f:
+            f.write("GPSTime,easting,northing,altitude,vel_e,vel_n,vel_u,roll,pitch,heading\n")
+            for st, x, y, h in seq_rows:
+                f.write(f"{st / 1e6:.6f},{x},{y},0.0,0,0,0,0.0,0.0,{h}\n")
+        for st, x, y, h in seq_rows:
+            T = np.eye(4)
+            T[:3, :3] = yawPitchRollToRot(h, 0.0, 0.0)
+            T[:2, 3] = (x, y)
+            np.save(os.path.join(d, "radar", f"{st}.npy"), render_scan(world, T, st, rng))
+    return rows
+
+
+def teach_pass(clouds: torch.Tensor) -> TeachPass:
+    teach = TeachPass(OdometryConfig(max_map_pts=CLI_MAP_PTS))
+    for c in clouds:
+        teach.process(c)
+    return teach
+
+
+def run_localize_cli(device, cfg: Config, smi: str) -> dict:
+    """Part (b) of the localize phase: the CLI's teach, datagen and localize
+    (with a seeded default-Config() checkpoint, GT stats and --init-chain)
+    on a written tree of raw 400 x 3360 scans, counters from 0 over the
+    three commands; the teach pass on the kernels against the plain path
+    and bitwise across two runs. Returns the commands' counters."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rows = write_loc_tree(root)
+        teach_dir = os.path.join(root, "vtr_data", "loc-teach", "radar")
+        loc_dir = os.path.join(root, "vtr_data", "loc-repeat", "radar")
+        ckpt = os.path.join(root, "ckpt")
+        run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                      checkpoint_dir=ckpt))
+        trainer = Trainer(run_cfg, device)
+        trainer.save(trainer.init_state(seed=0), "best_policy")
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(run_cfg), f)
+        del trainer
+        log("localize", f"wrote 2 x {CLI_FRAMES} raw scans {POLAR_SHAPE} and a seeded checkpoint "
+            f"in {time.perf_counter() - t0:.1f} s")
+        map_npz, traj = os.path.join(root, "map.npz"), os.path.join(root, "traj.txt")
+        gt = {seq: os.path.join(root, "vtr_data", seq, "applanix", "radar_poses.csv")
+              for seq in rows}
+        commands = {
+            "teach": ["teach", "--scans", teach_dir, "--out-map", map_npz, "--out-traj",
+                      os.path.join(root, "odo.txt"), "--max-map-pts", str(CLI_MAP_PTS)],
+            "datagen": ["datagen", "--data-root", root, "--map-seq", "loc-teach", "--loc-seq",
+                        "loc-repeat", "--max-points", str(N_SCAN), "--max-map-pts",
+                        str(CLI_MAP_PTS)],
+            "localize": ["localize", "--scans", loc_dir, "--map", map_npz, "--out-traj", traj,
+                         "--checkpoint", ckpt, "--map-gt", gt["loc-teach"], "--loc-gt",
+                         gt["loc-repeat"], "--stats", os.path.join(root, "stats.json"),
+                         "--init-chain", "--icp-type", "pt2pt", "--normal-threshold", "1.0"],
+        }
+        secs, per_command = {}, {}
+        for name, argv in commands.items():
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if localization_cli.main(argv + ["--device", str(device)]) != 0:
+                raise AssertionError(f"localize CLI {name} failed")
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            per_command[name] = {k: v for k, v in kernels.launch_counts().items() if v}
+        counts = {k: sum(c.get(k, 0) for c in per_command.values())
+                  for k in kernels.launch_counts()}
+        stats = json.load(open(os.path.join(root, "stats.json")))
+        poses, _ = gt_tools.read_traj_file(traj)
+        odo, _ = gt_tools.read_traj_file(os.path.join(root, "odo.txt"))
+        m = np.load(map_npz)["map_pc"]
+        log("localize", "CLI wall times: " + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+            + f"; localize {CLI_FRAMES / secs['localize']:.1f} frames/s (--init-chain, mask in "
+            f"the loop, B = 1) on {smi}; launches by command {per_command}")
+        log("localize", f"stats {stats}; map {int((np.abs(m[:, 0]) < 500).sum())} of "
+            f"{len(m)} rows real")
+        if not (all(np.isfinite(p).all() for p in poses + odo) and np.isfinite(m).all()
+                and all(math.isfinite(v) for v in stats.values())):
+            raise AssertionError("localize CLI: a pose, map row or stat is not finite")
+        if any(counts[k] < 1 for k in ("nn_stripe", "nn_argmin", "conv3x3")):
+            raise AssertionError(f"localize CLI: a kernel of the path did not launch: {counts}")
+
+        ds_cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+            cfg.data, map_sensor="radar", loc_sensor="radar", data_dir=root))
+        item = ICPWeightDataset([("loc-teach", "loc-repeat")], ds_cfg, "test")[0]
+        log("localize", f"datagen: ICPWeightDataset item 0: raw_pc "
+            f"{item['loc_data']['raw_pc'].shape}, map {item['map_data']['pc'].shape}, fft "
+            f"{item['loc_data']['fft_data'].shape}")
+        if not np.isfinite(item["transforms"]["T_ml_gt"]).all():
+            raise AssertionError("datagen: the dataset's item is not finite")
+
+        paths = [os.path.join(teach_dir, f"{st}.npy") for st, *_ in rows["loc-teach"]]
+        clouds = localization_cli._extract_clouds(localization_cli._load_radar_frames(paths),
+                                                  LocalizationConfig(), 8, device)
+        t0 = time.perf_counter()
+        one, two = teach_pass(clouds), teach_pass(clouds)
+        torch.cuda.synchronize()
+        per_frame = (time.perf_counter() - t0) * 1e3 / (2 * CLI_FRAMES)
+        with kernels.plain_versions():
+            plain = teach_pass(clouds)
+        T1, T2, Tp = (torch.stack(t._poses) for t in (one, two, plain))
+        bitwise = (torch.equal(one.map_pts, two.map_pts) and torch.equal(one.map_w, two.map_w)
+                   and torch.equal(T1, T2))
+        dt = (T1[:, :3, 3] - Tp[:, :3, 3]).norm(dim=-1).max().item()
+        log("localize", f"teach pass ({CLI_FRAMES} frames, {N_SCAN} points, map "
+            f"{CLI_MAP_PTS}): {per_frame:.2f} ms a frame; two passes bitwise equal {bitwise}; "
+            f"keyframes {one.n_keyframes} (plain path {plain.n_keyframes}), max |dt| vs plain "
+            f"{dt:.3e} m; captured ICP chunk graphs {len(sys.modules['mm_masking_tpu_torch.dicp.icp']._CHUNKS)}")
+        if not bitwise:
+            raise AssertionError("two teach passes on the card differ")
+        if one.n_keyframes != plain.n_keyframes or dt > 1e-4:
+            raise AssertionError("the teach pass on the kernels differs from the plain path")
+    return counts
+
+
 def run_probes(device) -> tuple[dict, dict]:
-    """Phase 9, the conv-probe path: the checks, then the timing with the
+    """Phase 10, the conv-probe path: the checks, then the timing with the
     counters from 0; returns (those counters, {row: measured numbers})."""
     checks = probe_conv.check_all(probe_conv.PROBES, device)
     kernels.reset_launch_counts()
@@ -1707,6 +2060,11 @@ def main() -> int:
     bf16_counts, train_bf16 = run_train_bf16(device, cfg)
     run_determinism(device, cfg)
     data_counts = run_data(device, cfg)
+    t0 = time.perf_counter()
+    loc_counts, loc_bf16_counts = run_localize_batch(device, cfg)
+    cli_counts = run_localize_cli(device, cfg, smi)
+    loc_counts = {k: loc_counts[k] + cli_counts[k] for k in loc_counts}
+    log("localize", f"phase: {time.perf_counter() - t0:.1f} s")
     probe_counts, probes = run_probes(device)
 
     # launches: the sum over the counted main-path runs of ROW_PHASES.
@@ -1747,7 +2105,8 @@ def main() -> int:
         measured[name]["bound_ms"], measured[name]["bound_by"] = bound
     phases = {"slice": counts, "dense": dense_counts, "slice_bf16": bf16_slice_counts,
               **refresh_counts, "train": train_counts, "train_bf16": bf16_counts,
-              "data": data_counts, "probes": probe_counts}
+              "data": data_counts, "localize": loc_counts, "localize_bf16": loc_bf16_counts,
+              "probes": probe_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -6,6 +6,7 @@ from mm_masking_tpu_torch.geom.se3 import (
     so3_exp,
     so3_left_jacobian,
     transform_points,
+    yaw_to_se3,
 )
 
 __all__ = [
@@ -16,4 +17,5 @@ __all__ = [
     "so3_exp",
     "so3_left_jacobian",
     "transform_points",
+    "yaw_to_se3",
 ]

@@ -89,3 +89,15 @@ def planar_xi_first_order(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     returns (xi_theta (…, 1) = sin θ, xi_r (…, 2))."""
     xi_wedge = T - torch.eye(4, dtype=T.dtype, device=T.device)
     return xi_wedge[..., 1, 0][..., None], xi_wedge[..., 0:2, 3]
+
+
+def yaw_to_se3(x: torch.Tensor, y: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """Planar pose (x, y, theta) -> (…, 4, 4) SE(3) matrix (exact, not exp)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([
+        torch.stack([c, -s, zero, x], dim=-1),
+        torch.stack([s, c, zero, y], dim=-1),
+        torch.stack([zero, zero, one, zero], dim=-1),
+        torch.stack([zero, zero, zero, one], dim=-1),
+    ], dim=-2)

@@ -18,7 +18,12 @@ from torch.func import functional_call
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.dicp import ICPConfig, icp
 from mm_masking_tpu_torch.models.unet import UNet
-from mm_masking_tpu_torch.ops import extract_weights, form_cart_range_angle_grid
+from mm_masking_tpu_torch.ops import (
+    cfar_mask,
+    extract_weights,
+    form_cart_range_angle_grid,
+    radar_polar_to_cartesian,
+)
 
 
 class _SafeAmaxHW(torch.autograd.Function):
@@ -154,6 +159,30 @@ class LearnICPWeightPolicy:
         mask = functional_call(self.unet, params, (x.to(m.torch_dtype),),
                                {"train": train, "generator": generator})
         return mask.float()
+
+    def mask_for_scan(self, params: dict, fft_polar: torch.Tensor,
+                      azimuths: torch.Tensor) -> torch.Tensor:
+        """(B, A, R) raw polar power and (B, A) azimuths → (B, Wc, Wc)
+        cartesian weight mask, ready for :func:`extract_weights` at the scan
+        points: the CFAR channel (when configured) and the polar→cartesian
+        warp of the raw scan, then :meth:`compute_mask`, the per-image max
+        normalisation (``norm_weights``) and ``binary_inference``. The
+        normalisation's statistics are over the frames passed together."""
+        m = self.cfg.model
+        cfar_in = None
+        if m.cfar_input:
+            cfar_in = cfar_mask(fft_polar, m.res, a_thresh=m.a_thresh, b_thresh=m.b_thresh,
+                                diff=False)
+            cfar_in = radar_polar_to_cartesian(cfar_in, azimuths, m.res, m.cart_resolution,
+                                               m.cart_pixel_width)
+        fft_in = radar_polar_to_cartesian(fft_polar, azimuths, m.res, m.cart_resolution,
+                                          m.cart_pixel_width)
+        mask = self.compute_mask(params, fft_in, cfar_in)
+        if m.norm_weights:
+            mask = torch.minimum(mask / _safe_amax_hw(mask), mask.new_ones(()))
+        if m.binary_inference:
+            mask = (mask > 0.5).to(mask.dtype)
+        return mask
 
     def apply(
         self,

@@ -5,7 +5,9 @@ from mm_masking_tpu_torch.ops.cfar import (
     mean_peaks,
     pol_2_cart_batched,
 )
+from mm_masking_tpu_torch.ops.detectors import DETECTORS, detect, doppler_shift, motion_undistort
 from mm_masking_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_points
+from mm_masking_tpu_torch.ops.preprocessing import estimate_normals, knn_indices, voxel_downsample
 from mm_masking_tpu_torch.ops.radar import (
     CART_PIXEL_WIDTH,
     CART_RESOLUTION,
@@ -21,12 +23,16 @@ from mm_masking_tpu_torch.ops.weights import WeightStats, extract_bev_from_pts, 
 
 __all__ = [
     "CART_PIXEL_WIDTH",
+    "DETECTORS",
     "CART_RESOLUTION",
     "ENCODER_TICKS",
     "POLAR_RESOLUTION",
     "POLAR_SHAPE",
     "WeightStats",
     "cfar_mask",
+    "detect",
+    "doppler_shift",
+    "estimate_normals",
     "extract_bev_from_pts",
     "extract_pc",
     "extract_weights",
@@ -34,9 +40,12 @@ __all__ = [
     "grid_sample_2d",
     "grid_sample_points",
     "hardshrink",
+    "knn_indices",
     "load_radar",
     "mean_peaks",
+    "motion_undistort",
     "pol_2_cart_batched",
     "point_to_cart_idx",
     "radar_polar_to_cartesian",
+    "voxel_downsample",
 ]

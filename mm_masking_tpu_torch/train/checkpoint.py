@@ -34,6 +34,14 @@ def load_checkpoint(directory: str, name: str, map_location=None) -> dict:
                       weights_only=True)
 
 
+def load_policy_variables(directory: str, name: str = "best_policy",
+                          map_location=None) -> dict:
+    """The UNet parameters of checkpoint ``name`` (as ``Trainer.save`` wrote
+    it), without the optimizer's state: what an inference-only consumer,
+    such as the localization CLI's ``--checkpoint``, needs."""
+    return load_checkpoint(directory, name, map_location=map_location)["params"]
+
+
 def latest_epoch(directory: str) -> int | None:
     """Highest N among the ``epoch_N`` checkpoints in the directory, if any."""
     if not os.path.isdir(directory):

@@ -1073,3 +1073,112 @@ def test_cli_trains_on_a_written_tree_on_the_card(cuda, tmp_path):
     assert [r["event"] for r in records] == ["baseline", "pretrain_val", "epoch", "final_val"]
     assert all(np.isfinite(records[2][k]) for k in ("loss", "grad_norm", "acc"))
     assert {"best_policy.pt", "epoch_0.pt"} <= set(os.listdir(out))
+
+
+def loc_scene(device, seed=3, batch=4):
+    """Polar scans (128 x 1400 at 0.0596 m) of 1024 points against maps of
+    8192 (the stripe association), near initial guesses."""
+    spec = SyntheticSpec(network_input_type="polar", n_scan=1024, n_map=8192,
+                         polar_shape=(128, 1400), pos_std=0.3, rot_std=0.1)
+    return synthetic_batch(seed, batch, spec, device=device)
+
+
+def test_localize_frame_on_the_kernels_matches_plain(cuda):
+    from mm_masking_tpu_torch.localization import LocalizationConfig, localize_frame
+
+    b = loc_scene(cuda)
+    args = (b["loc_data"]["fft_data"], b["loc_data"]["azimuths"], b["loc_data"]["az_times"],
+            b["map_data"]["pc"], b["transforms"]["T_ml_init"])
+    cfg = LocalizationConfig(beta=0.0, max_points=1024)
+    localize_frame(*args, cfg)  # captures the refined solve's graph
+    reset_launch_counts()
+    got = localize_frame(*args, cfg)
+    counts = launch_counts()
+    assert counts["nn_stripe"] > 0 and counts["nn_argmin"] > 0, counts
+    with plain_versions():
+        want = localize_frame(*args, cfg)
+    # Uniform weights: the NN kernels are bit-identical to their plain versions.
+    assert (got["T"] - want["T"]).abs().max().item() <= 1e-6
+    assert torch.equal(got["matched_ratio"], want["matched_ratio"])
+    assert torch.equal(got["ok"], want["ok"])
+
+
+def teach_scans(device, n_frames=10, n=1024):
+    rng = np.random.default_rng(5)
+    r, a = rng.uniform(5, 40, 4000), rng.uniform(0, 2 * np.pi, 4000)
+    world = np.stack([r * np.cos(a), r * np.sin(a), np.zeros(4000)], -1)
+    scans, T = [], np.eye(4)
+    step = np.eye(4)
+    step[:2, :2] = [[np.cos(0.02), -np.sin(0.02)], [np.sin(0.02), np.cos(0.02)]]
+    step[:2, 3] = (0.6, 0.05)
+    for _ in range(n_frames):
+        Ti = np.linalg.inv(T)
+        s = (world @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32)
+        s += rng.normal(0, 0.01, s.shape).astype(np.float32)
+        s[:, 2] = 0.0
+        scans.append(s[np.hypot(s[:, 0], s[:, 1]) < 45][:n])
+        T = step @ T
+    return torch.from_numpy(np.stack(scans)).to(device)
+
+
+def test_teach_passes_are_bitwise_equal(cuda):
+    from mm_masking_tpu_torch.localization import OdometryConfig, TeachPass
+
+    scans = teach_scans(cuda)
+
+    def run():
+        tp = TeachPass(OdometryConfig(max_map_pts=4096))
+        for s in scans:
+            tp.process(s)
+        return tp
+
+    one, two = run(), run()
+    assert torch.equal(one.map_pts, two.map_pts) and torch.equal(one.map_w, two.map_w)
+    assert torch.equal(torch.stack(one._poses), torch.stack(two._poses))
+    with plain_versions():
+        plain = run()
+    assert plain.n_keyframes == one.n_keyframes
+    dt = (torch.stack(one._poses) - torch.stack(plain._poses))[:, :3, 3].norm(dim=-1)
+    assert dt.max().item() <= 1e-4
+
+
+def test_knn_ties_on_cuda_in_index_order(cuda):
+    from mm_masking_tpu_torch.ops.preprocessing import knn_indices
+
+    pts = np.random.default_rng(0).integers(-3, 4, (2, 700, 3)).astype(np.float32)
+    got = knn_indices(torch.from_numpy(pts).to(cuda), k=9, chunk=256).cpu().numpy()
+    d2 = ((pts[:, :, None].astype(np.float64) - pts[:, None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(got, np.argsort(d2, axis=-1, kind="stable")[..., :9])
+
+
+def test_voxel_downsample_on_cuda_is_the_cpu_result(cuda):
+    """The sequential segment sum gives the CPU's bits on the card."""
+    from mm_masking_tpu_torch.ops.preprocessing import voxel_downsample
+
+    rng = np.random.default_rng(1)
+    pts = torch.from_numpy(rng.uniform(-60, 60, (20000, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(0, 5, 20000).astype(np.float32))
+    center = torch.tensor([3.0, -2.0, 0.0])
+    for kw in (dict(), dict(center=center), dict(weights=w), dict(center=center, weights=w)):
+        want = voxel_downsample(pts, voxel=0.7, max_out=4096, pad_val=1000.0, **kw)
+        got = voxel_downsample(pts.to(cuda), voxel=0.7, max_out=4096, pad_val=1000.0,
+                               **{k: v.to(cuda) for k, v in kw.items()})
+        for g, t in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g.cpu(), t)
+
+
+def test_localization_cli_runs_on_the_card_by_default(cuda, tmp_path):
+    from mm_masking_tpu_torch.localization.__main__ import main
+
+    scans = teach_scans("cpu", n_frames=4, n=512).numpy()
+    d = tmp_path / "scans"
+    d.mkdir()
+    for i, s in enumerate(scans):
+        np.savez_compressed(d / f"frame_{1_000_000 + 100_000 * i}.npz", filt_pc=s, raw_pc=s)
+    assert main(["teach", "--scans", str(d), "--out-map", str(tmp_path / "map.npz"),
+                 "--max-points", "512", "--max-map-pts", "4096"]) == 0
+    assert main(["localize", "--scans", str(d), "--map", str(tmp_path / "map.npz"),
+                 "--out-traj", str(tmp_path / "traj.txt"), "--max-points", "512",
+                 "--icp-type", "pt2pt", "--normal-threshold", "1.0"]) == 0
+    assert len(open(tmp_path / "traj.txt").read().splitlines()) == 4
