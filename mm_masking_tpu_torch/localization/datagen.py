@@ -73,6 +73,8 @@ def _load_clouds_any(scan_dir: str, cfg: DatagenConfig, sensor: str, device):
         kind, paths = "lidar", [osp.join(scan_dir, f) for f in bins]
     else:
         kind, paths = _scan_files(scan_dir)
+    if kind == "lidar" and sensor != "lidar":
+        raise ValueError(f"{scan_dir}: lidar frames (*.bin) found but sensor={sensor}")
     if cfg.limit > 0:
         paths = paths[: cfg.limit]
     stamps = [_stamp_of(p) for p in paths]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 
 import numpy as np
 import pytest
@@ -205,6 +206,42 @@ def test_datagen_matches_jax_and_loads(gen_tree):
     assert item["loc_data"]["raw_pc"].shape == (pindex["max_loc"], 3)
     assert item["map_data"]["pc"].shape == (pindex["max_map"], 6)
     assert np.isfinite(item["transforms"]["T_ml_gt"]).all()
+
+
+def write_lidar_frames(d, world, stamps):
+    """Boreas lidar frames: float32 (N, 6) binaries."""
+    d.mkdir(parents=True, exist_ok=True)
+    for st in stamps:
+        np.concatenate([world, np.zeros_like(world)], 1).astype(np.float32).tofile(
+            d / f"{st}.bin")
+
+
+@pytest.mark.parametrize("side", ["map", "loc"])
+def test_datagen_refuses_lidar_frames_for_a_radar_sensor(gen_tree, tmp_path, world, side):
+    """A directory of .bin lidar frames given as the radar teach or repeat
+    scans raises, naming the directory and the sensor, before any shard is
+    written (the JAX package reads .bin for sensor == "lidar" only)."""
+    root, loc_rows = gen_tree
+    bins = tmp_path / "bins"
+    write_lidar_frames(bins, world, [r[0] for r in loc_rows])
+    scans = {"map": str(root / "scans_teach"), "loc": str(root / "scans_loc"), side: str(bins)}
+    with pytest.raises(ValueError, match=re.escape(f"{bins}: lidar frames (*.bin) found but "
+                                                   "sensor=radar")):
+        cli.main(["datagen", "--data-root", str(root), "--map-seq", MAP_SEQ, "--loc-seq",
+                  LOC_SEQ, "--map-scans", scans["map"], "--loc-scans", scans["loc"],
+                  "--max-points", "256", "--max-map-pts", "2048"] + CPU)
+
+
+def test_datagen_refuses_raw_scans_for_a_lidar_sensor(gen_tree, tmp_path):
+    """The other direction: raw Navtech scans given as lidar frames raise,
+    naming the directory and the sensor."""
+    root, _ = gen_tree
+    scans = str(root / "vtr_data" / LOC_SEQ / "radar")
+    with pytest.raises(ValueError, match=re.escape(f"{scans}: raw Navtech scans found but "
+                                                   "sensor=lidar")):
+        cli.main(["datagen", "--data-root", str(root), "--map-seq", MAP_SEQ, "--loc-seq",
+                  LOC_SEQ, "--map-scans", scans, "--map-sensor", "lidar", "--loc-sensor",
+                  "radar", "--max-points", "256"] + CPU)
 
 
 def test_localize_with_checkpoint_chain_and_gt_priors(tmp_path, world):

@@ -1182,3 +1182,77 @@ def test_localization_cli_runs_on_the_card_by_default(cuda, tmp_path):
                  "--out-traj", str(tmp_path / "traj.txt"), "--max-points", "512",
                  "--icp-type", "pt2pt", "--normal-threshold", "1.0"]) == 0
     assert len(open(tmp_path / "traj.txt").read().splitlines()) == 4
+
+
+def recipe_batch(cuda, tmp_path):
+    """The product recipe's first training batch at the tiny scale's widths
+    (UNet 4, 8 at 64², 512 / 2048 points) in bf16 pt2pl: the tree
+    synthesized, its shards written by datagen on the card, the batch
+    loaded (detector-extracted clouds, a lidar map with normals); and the
+    recipe's trainer (lr 1e-4, clip 10)."""
+    from mm_masking_tpu_torch.benchmarks import e2e_product as e2e
+    from mm_masking_tpu_torch.data import ICPWeightDataset, epoch_batches
+    from mm_masking_tpu_torch.localization.datagen import DatagenConfig, generate_pair
+
+    sc = dataclasses.replace(e2e.TINY, dtype="bfloat16", batch_train=4)
+    root = str(tmp_path / "tree")
+    e2e.synthesize_tree(root, sc)
+    generate_pair(root, e2e.MAP_SEQ, e2e.TRAIN_SEQ, DatagenConfig(
+        map_sensor="lidar", loc_sensor="radar", max_points=sc.max_loc_pts,
+        max_map_pts=sc.max_map_pts, radar_resolution=sc.res, voxel_size=0.3, batch_size=8),
+        device=cuda)
+    args = e2e.build_parser().parse_args(["--scale", "tiny", "--lr", "1e-4", "--clip", "10"])
+    cfg = e2e.make_config(args, sc, root, ((e2e.MAP_SEQ, e2e.TRAIN_SEQ),))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_dir=str(tmp_path / "ckpt")))
+    assert (cfg.model.dtype, cfg.model.icp_type, cfg.train.clip_value) == ("bfloat16", "pt2pl",
+                                                                           10.0)
+    ds = ICPWeightDataset(list(cfg.train_loc_pairs), cfg, "train")
+    batches = epoch_batches(ds, sc.batch_train, cfg, seed=0, device=cuda)
+    batch = next(batches)
+    batches.close()
+    return Trainer(cfg, cuda), batch
+
+
+def test_recipe_bf16_pt2pl_train_step_matches_eager_and_plain(cuda, tmp_path):
+    """The recipe's train step (bf16, pt2pl, clip 10) on its own first
+    batch: two replays of the captured graph, each against an eager
+    kernel-path step from the state it started from (loss and grad_norm
+    1e-6 relative, parameters 1e-5 of the largest |p|), and the first step
+    against the plain path: the loss within 2e-2 relative (bf16 rounds each
+    activation to 8 bits on both paths, and a sum in another order can flip
+    a rounding). grad_norm is not compared with the plain path here: at
+    these widths bf16 mask pixels tie at the image's max and the BCE's
+    gradient reaches 1e7 on both paths and in the JAX package, depending on
+    which pixels tie (ROADMAP §3, fault 1); ``chip_smoke.py``'s e2e phase
+    compares it at full width."""
+    trainer, batch = recipe_batch(cuda, tmp_path)
+    graph_state, eager_state = trainer.init_state(), trainer.init_state()
+    trainer.capture_train_step(graph_state, batch)
+    scale = max(v.abs().max().item() for v in graph_state.params.values())
+    reset_launch_counts()
+    losses = []
+    for step in range(2):
+        with torch.no_grad():
+            for a, b in zip(eager_state.opt.tensors(), graph_state.opt.tensors()):
+                a.copy_(b)
+        eager_state.generator.set_state(graph_state.generator.get_state())
+        _, loss, _, gn = trainer.train_step(graph_state, batch)
+        with eager():
+            _, loss_e, _, gn_e = trainer.train_step(eager_state, batch)
+        assert torch.isfinite(loss) and torch.isfinite(gn)
+        assert abs(loss.item() - loss_e.item()) <= 1e-6 * abs(loss_e.item()), step
+        assert abs(gn.item() - gn_e.item()) <= 1e-6 * gn_e.item(), step
+        for k, v in eager_state.params.items():
+            assert (graph_state.params[k] - v).abs().max().item() <= 1e-5 * scale, (step, k)
+        losses.append(loss.item())
+    counts = launch_counts()
+    n_conv = len(conv3x3_shapes(trainer.cfg.model.enc_channels,
+                                trainer.cfg.model.cart_pixel_width))
+    assert counts["conv3x3_dk"] == 4 * n_conv  # two replays and two eager steps
+    assert counts["nn_stripe"] + counts["nn_argmin"] >= 4 * trainer.cfg.model.max_iter
+    with plain_versions():
+        _, loss_p, _, gn_p = trainer.train_step(trainer.init_state(), batch)
+    assert torch.isfinite(loss_p) and torch.isfinite(gn_p)
+    assert abs(losses[0] - loss_p.item()) <= 2e-2 * abs(loss_p.item())
+    assert int(graph_state.opt.total_notfinite) == 0
