@@ -99,7 +99,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            counters, losses, grad_norms and the dropout generator; a step
            resumed from a checkpoint bitwise equal to the uninterrupted
            run's next step.
-8. data    the training CLI (``train_icp_weights.main``) on a Boreas-layout
+8. implicit  ``Trainer.train_step`` with ``icp_diff_mode="implicit"`` at
+           the default Config()'s widths, B = 16 (pt2pt and pt2pl in
+           float32, pt2pl in bfloat16): the solve to tolerance (50
+           iterations, each item frozen on the device, K4) in the forward
+           and the implicit-function-theorem weight gradient, whose dense
+           association is K1, in the backward, all one CUDA graph. With the
+           counters from 0, 3 replays: every conv, K1 exactly once a step;
+           each replay against an eager kernel-path step from its state
+           (loss and grad_norm 1e-6 relative, parameters 1e-5 of max |p|);
+           the first step against the plain path (float32: loss 1e-5,
+           grad_norm 1e-3 relative; bfloat16: 2e-2); timed on the three
+           paths.
+9. data    the training CLI (``train_icp_weights.main``) on a Boreas-layout
            tree written by ``data.testing.write_synthetic_dataset`` to a
            temporary directory at the default Config()'s widths (12 training
            pairs of 3 frames, 32 validation frames, 400 x 3360 polar scans,
@@ -107,14 +119,19 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            ``train.num_epochs=1`` and the checkpoint directory set: baseline,
            pre-training validation, two B = 16 steps replayed from the
            captured graph, validation, final validation; every logged number
-           finite, the checkpoints written. Then one collated batch's
+           finite, the checkpoints written, and the validation artifacts
+           (``learned_mask_epre``, ``learned_mask_e0``, ``raw_scan``,
+           ``cfar_mask``, ``fft_mask``, ``map_mask``) valid 640 x 640 PNGs
+           (signature, IHDR size, data that decompresses). Then one
+           collated batch's
            ``preprocess_batch`` on the card against the CPU (u8/255 bit for
            bit; the warp within its float32 conditioning, two ulps of a
            sampling coordinate times the largest step between neighbouring
            polar pixels), baselines 1-3,
-           ``evaluate_sequence`` and ``gt_tools.eval_localization_run`` on
-           the validation batch, their errors logged.
-9. localize the localization path at full width. (a) 32
+           ``evaluate_sequence`` and ``gt_tools.eval_localization_run`` (with
+           its error plot, a valid PNG) on the validation batch, their errors
+           logged.
+10. localize the localization path at full width. (a) 32
            polar 400 x 3360 scans of ``synthetic_batch(seed=3, …, polar)``
            (4096 scan, 16384 map points with normals) through
            ``localize_frame`` in 4 chunks of 8 at the default
@@ -135,20 +152,23 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            kernels against the plain path (keyframes, 1e-4 m) and bitwise
            across two passes; wall times, frames per second and the
            captured ICP chunk graphs logged.
-10. e2e    the product recipe (``mm_masking_tpu_torch.benchmarks.e2e_product``)
+11. e2e    the product recipe (``mm_masking_tpu_torch.benchmarks.e2e_product``)
            at full width (400 x 3360 polar, 640^2, 4096 / 16384 points, UNet
            8...256, bf16, pt2pl) with one training sequence and 2 epochs, in a
            temporary directory, counters from 0: the summary's 16 keys
-           present and finite, no update dropped, K1, K2 bf16 (forward and
-           dx), K3 bf16 and K4 launched; the wall times of synthesis,
-           datagen, each epoch's train and val pass and val_init_baseline
-           logged. Then the train step on the recipe's first training batch
+           present and finite, no update dropped, every epoch's
+           grad_norm_max under 100 (the gate's G3 limit; ROADMAP §3 fault
+           4), K1, K2 bf16 (forward and dx), K3 bf16 and K4 launched; the
+           wall times of synthesis, datagen, each epoch's train and val pass
+           and val_init_baseline logged, and the float32 mask of a fresh bf16
+           UNet's distinct values and pixels at each image's max. Then the
+           train step on the recipe's first training batch
            (detector-extracted clouds, a map with normals): 3 replays of its
            captured graph, each against an eager step from its state (loss
            and grad_norm 1e-6 relative, parameters 1e-5 of max |p|), and
            the first against the plain path (loss and grad_norm 2e-2
            relative, bf16's rounding).
-11. probes the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
+12. probes the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
            each probe kernel P1-P4 and each of P2's five variants against
            its plain version at the probes' check shapes (f32) and at
            B = 16, 640^2, 16 -> 16 (f32 and bf16; asm-only bit for bit),
@@ -176,10 +196,12 @@ import math
 import os
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -285,21 +307,25 @@ KERNELS = {
 # The counted main-path runs whose launches each row sums: the eval step,
 # its dense variant and its bfloat16 run, the motion-gated bfloat16 eval
 # steps (stripe and dense), the train steps, the bfloat16 train steps, the
+# implicit-gradient train steps (pt2pt and pt2pl in float32, bfloat16), the
 # training CLI on a written tree (float32), the localize phase (float32;
 # its bfloat16 mask run apart), the product recipe (bfloat16 pt2pl) and the
 # probe timing (whose bfloat16 K2 yardstick is the bfloat16 K2 row's).
 NN_PHASES = ("slice", "dense", "slice_bf16", "refresh", "refresh_dense", "train", "train_bf16",
-             "data", "localize", "localize_bf16", "e2e")
+             "implicit", "implicit_pt2pl", "implicit_bf16", "data", "localize", "localize_bf16",
+             "e2e")
 ROW_PHASES = {
-    "conv3x3": ("slice", "dense", "train", "data", "localize"),
-    "conv3x3_dk": ("train", "data"),
-    "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "probes",
-                     "localize_bf16", "e2e"),
-    "conv3x3_dk_bf16": ("train_bf16", "e2e"),
+    "conv3x3": ("slice", "dense", "train", "implicit", "implicit_pt2pl", "data", "localize"),
+    "conv3x3_dk": ("train", "implicit", "implicit_pt2pl", "data"),
+    "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "implicit_bf16",
+                     "probes", "localize_bf16", "e2e"),
+    "conv3x3_dk_bf16": ("train_bf16", "implicit_bf16", "e2e"),
     "nn_stripe": NN_PHASES,
     "nn_argmin": NN_PHASES,
-    "resize_bwd": ("train", "train_bf16", "data", "e2e"),
-    "bilinear_points_bwd": ("train", "train_bf16", "data", "e2e"),
+    "resize_bwd": ("train", "train_bf16", "implicit", "implicit_pt2pl", "implicit_bf16", "data",
+                   "e2e"),
+    "bilinear_points_bwd": ("train", "train_bf16", "implicit", "implicit_pt2pl",
+                            "implicit_bf16", "data", "e2e"),
 }
 # Each probe's row is timed at the canonical low-channel stage (B = 16, 640^2,
 # 16 -> 16, bf16) with the probe's own default tile.
@@ -1323,14 +1349,60 @@ def run_train(device, cfg: Config) -> tuple[dict, dict]:
 def run_train_bf16(device, cfg: Config) -> tuple[dict, dict]:
     """The same train step with ``model.dtype="bfloat16"`` (K2's and K3's
     bfloat16 kernels): 3 replays, finite, timed on the three paths. The
-    loss is not held to the float32 step's: bfloat16 activations, and the
-    grad_norm of 1e7 or more that bfloat16 gives the reference too."""
+    loss is not held to the float32 step's: bfloat16 activations."""
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"))
     trainer = Trainer(cfg, device)
     batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
                             device=device)
     *_, counts = captured_steps(trainer, batch, "train_bf16")
     return counts, {"times": time_train(trainer, batch, "train_bf16")}
+
+
+# The implicit phase's runs: (label, ICP type, UNet type).
+IMPLICIT_RUNS = (("implicit", "pt2pt", "float32"), ("implicit_pt2pl", "pt2pl", "float32"),
+                 ("implicit_bf16", "pt2pl", "bfloat16"))
+
+
+def run_implicit(device, cfg: Config) -> dict[str, dict]:
+    """The train step with ``icp_diff_mode="implicit"`` at full width, B =
+    16 (pt2pt and pt2pl in float32, pt2pl in bfloat16): the solve to
+    tolerance (max(5 * max_iter, 50) iterations, each item frozen on the
+    device) in the forward, and the implicit-function-theorem weight
+    gradient, with its dense association (K1), in the backward, all in the
+    step's one CUDA graph. Per run: captured, 3 replays with the counters
+    from 0 (every conv, K4 in the forward, K1 exactly once a step), each
+    against an eager kernel-path step from its state (loss and grad_norm
+    1e-6 relative, parameters 1e-5 of max |p|), the first against the plain
+    path (float32: loss 1e-5, grad_norm 1e-3 relative; bfloat16: 2e-2, the
+    bf16 train steps' limit), then timed on the three paths. Returns
+    {label: the replays' counters}."""
+    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    out = {}
+    for label, icp_type, dtype in IMPLICIT_RUNS:
+        trainer = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, icp_diff_mode="implicit", icp_type=icp_type, dtype=dtype)), device)
+        _, _, steps, snaps, counts = captured_steps(trainer, batch, label)
+        if counts["nn_argmin"] != TRAIN_STEPS or counts["nn_stripe"] < TRAIN_STEPS:
+            raise AssertionError(f"{label}: expected K1 once a step (the backward's dense "
+                                 f"association) and K4 in the forward's solve, got {counts}")
+        check_replays(trainer, batch, steps, snaps, label)
+        with kernels.plain_versions():
+            _, loss_p, _, gnorm_p = trainer.train_step(trainer.init_state(seed=0), batch)
+        loss, gnorm = steps[0][1].item(), steps[0][3].item()
+        d_loss = abs(loss - loss_p.item()) / abs(loss_p.item())
+        d_gnorm = abs(gnorm - gnorm_p.item()) / gnorm_p.item()
+        log(label, f"step 1 kernel vs plain ({dtype} {icp_type}): loss {loss:.7g} vs "
+            f"{loss_p.item():.7g} (rel {d_loss:.3e}), grad_norm {gnorm:.7g} vs "
+            f"{gnorm_p.item():.7g} (rel {d_gnorm:.3e})")
+        lim_loss, lim_gnorm = (1e-5, 1e-3) if dtype == "float32" else (2e-2, 2e-2)
+        if d_loss > lim_loss or d_gnorm > lim_gnorm:
+            raise AssertionError(f"{label}: the implicit train step differs from the plain path "
+                                 f"beyond loss {lim_loss} / grad_norm {lim_gnorm} relative")
+        time_train(trainer, batch, label)
+        out[label] = counts
+        del trainer, steps, snaps
+    return out
 
 
 def train_chain(trainer: Trainer, batch, state, steps: int = TRAIN_STEPS) -> list:
@@ -1434,6 +1506,33 @@ def errors_line(T_pred: torch.Tensor, batch) -> str:
             f"{e.trans_mean:.4g} (max {e.trans_max:.4g}) m over {e.n_frames} frames")
 
 
+# The validation artifacts the training CLI's fit writes (the JAX package's names).
+ARTIFACTS = ("learned_mask_epre", "learned_mask_e0", "raw_scan", "cfar_mask", "fft_mask",
+             "map_mask")
+
+
+def check_png(path: str, size: tuple[int, int]) -> None:
+    """Raise unless ``path`` is an 8-bit PNG of ``size`` (width, height): the
+    signature, the IHDR's size and depth, and IDAT data that decompresses to
+    one filter byte and the pixels of each row."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError(f"{path}: not a PNG")
+    width, height, depth, color = struct.unpack(">IIBB", data[16:26])
+    idat, pos = b"", 8
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    channels = {0: 1, 2: 3}.get(color, 0)
+    if ((width, height) != size or depth != 8 or not channels
+            or len(zlib.decompress(idat)) != height * (1 + width * channels)):
+        raise AssertionError(f"{path}: {width} x {height}, depth {depth}, colour type {color}; "
+                             f"expected an 8-bit {size[0]} x {size[1]} image")
+
+
 def run_data(device, cfg: Config) -> dict:
     """The data path at the default Config(): a full-width tree written to a
     temporary directory, the training CLI's ``main`` on it (baseline,
@@ -1469,6 +1568,14 @@ def run_data(device, cfg: Config) -> dict:
             raise AssertionError(f"a logged number is not finite: {records}")
         if not {"best_policy.pt", "epoch_0.pt", "config.json"} <= set(os.listdir(ckpt)):
             raise AssertionError(f"checkpoints missing: {os.listdir(ckpt)}")
+        art_dir = os.path.join(ckpt, "run_artifacts")
+        if sorted(os.listdir(art_dir)) != sorted(f"{n}.png" for n in ARTIFACTS):
+            raise AssertionError(f"the CLI's artifacts: {sorted(os.listdir(art_dir))}")
+        width = cfg.model.cart_pixel_width
+        for name in ARTIFACTS:
+            check_png(os.path.join(art_dir, f"{name}.png"), (width, width))
+        log("data", f"fit wrote {len(ARTIFACTS)} artifacts, valid {width} x {width} PNGs: "
+            f"{', '.join(ARTIFACTS)}")
         n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
         # Two steps of one captured graph: the capture's warm-up and two replays.
         if counts["conv3x3_dk"] != 3 * n_conv or counts["bilinear_points_bwd"] != 3:
@@ -1529,11 +1636,15 @@ def run_data(device, cfg: Config) -> dict:
         map_seq, loc_seq = c.val_loc_pairs[0]
         stats = gt_tools.eval_localization_run(
             traj, os.path.join(root, "vtr_data", map_seq, "applanix", "lidar_poses.csv"),
-            os.path.join(root, "vtr_data", loc_seq, "applanix", "radar_poses.csv"))
-        log("data", f"gt_tools.eval_localization_run on the learned mask's trajectory: {stats}")
+            os.path.join(root, "vtr_data", loc_seq, "applanix", "radar_poses.csv"),
+            plots_dir=os.path.join(root, "plots"), seq_name="est_traj")
+        plots = stats.pop("plots")
+        log("data", f"gt_tools.eval_localization_run on the learned mask's trajectory: {stats}; "
+            f"plots {sorted(os.path.basename(p) for p in plots.values())}")
         if stats["n_frames"] != DATA_VAL_FRAMES or not all(
                 math.isfinite(v) for v in stats.values()):
             raise AssertionError(f"eval_localization_run: {stats}")
+        check_png(plots["png"], (900, 3 * 220 + 2 * 2))
     return counts
 
 
@@ -1988,7 +2099,7 @@ E2E_EPOCHS = 2  # the e2e phase's epochs of the recipe at full width, one traini
 
 
 def run_e2e(device, smi: str) -> dict:
-    """Phase 10: the product recipe (``benchmarks/e2e_product.py``'s
+    """Phase 11: the product recipe (``benchmarks/e2e_product.py``'s
     ``main``) at full width in a temporary directory, with the counters from
     0: synthesis, datagen, 2 epochs of bf16 pt2pl training, the baselines;
     the summary's 16 keys present and finite, no update dropped, and K1, K2
@@ -2031,6 +2142,12 @@ def run_e2e(device, smi: str) -> dict:
                 if counts[k] < 1]
         if idle:
             raise AssertionError(f"e2e: kernels of the recipe's path did not launch: {idle}")
+        metrics = os.path.join(tmp, "results", "checkpoints", "e2e_smoke", "run_metrics.jsonl")
+        with open(metrics) as f:
+            gmax = [r["grad_norm_max"] for r in map(json.loads, f) if r["event"] == "epoch"]
+        log("e2e", f"grad_norm_max by epoch {gmax} (the gate's G3 limit: under 100)")
+        if len(gmax) != E2E_EPOCHS or not all(g < 100.0 for g in gmax):
+            raise AssertionError(f"e2e: grad_norm_max {gmax}, 100 or more (ROADMAP §3 fault 4)")
 
         args = e2e_product.build_parser().parse_args(argv)
         sc = dataclasses.replace(e2e_product.Scale(), epochs=E2E_EPOCHS)
@@ -2055,10 +2172,11 @@ def run_e2e(device, smi: str) -> dict:
                                            batch["loc_data"]["fft_data"],
                                            batch["loc_data"]["fft_cfar"])
     ties = (mask >= mask.amax(dim=(1, 2), keepdim=True)).sum((1, 2))
-    # ROADMAP §3 fault 1: a bf16 sigmoid takes few values near its max, so
-    # pixels tie there and the mask-points BCE's gradient stops cancelling.
-    log("e2e", f"the bf16 mask of a fresh state on this batch: {mask.unique().numel()} distinct "
-        f"values, pixels at each image's max {ties.tolist()}")
+    # ROADMAP §3 faults 1 and 4: a bf16 sigmoid took few values near its max,
+    # so pixels tied there and the mask-points BCE's gradient stopped
+    # cancelling; the head now sums, adds and takes its sigmoid in float32.
+    log("e2e", f"the {mask.dtype} mask of a fresh bf16 UNet on this batch: "
+        f"{mask.unique().numel()} distinct values, pixels at each image's max {ties.tolist()}")
     _, _, steps, snaps, _ = captured_steps(trainer, batch, "e2e")
     check_replays(trainer, batch, steps, snaps, "e2e")
     with kernels.plain_versions():
@@ -2078,7 +2196,7 @@ def run_e2e(device, smi: str) -> dict:
 
 
 def run_probes(device) -> tuple[dict, dict]:
-    """Phase 10, the conv-probe path: the checks, then the timing with the
+    """Phase 12, the conv-probe path: the checks, then the timing with the
     counters from 0; returns (those counters, {row: measured numbers})."""
     checks = probe_conv.check_all(probe_conv.PROBES, device)
     kernels.reset_launch_counts()
@@ -2166,6 +2284,9 @@ def main() -> int:
     train_counts, train = run_train(device, cfg)
     bf16_counts, train_bf16 = run_train_bf16(device, cfg)
     run_determinism(device, cfg)
+    t0 = time.perf_counter()
+    implicit_counts = run_implicit(device, cfg)
+    log("implicit", f"phase: {time.perf_counter() - t0:.1f} s")
     data_counts = run_data(device, cfg)
     t0 = time.perf_counter()
     loc_counts, loc_bf16_counts = run_localize_batch(device, cfg)
@@ -2215,7 +2336,8 @@ def main() -> int:
         measured[name]["bound_ms"], measured[name]["bound_by"] = bound
     phases = {"slice": counts, "dense": dense_counts, "slice_bf16": bf16_slice_counts,
               **refresh_counts, "train": train_counts, "train_bf16": bf16_counts,
-              "data": data_counts, "localize": loc_counts, "localize_bf16": loc_bf16_counts,
+              **implicit_counts, "data": data_counts, "localize": loc_counts,
+              "localize_bf16": loc_bf16_counts,
               "e2e": e2e_counts, "probes": probe_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [

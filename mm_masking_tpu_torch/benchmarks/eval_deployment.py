@@ -23,8 +23,9 @@ Usage, after ``e2e_product`` trained a run::
         --root <the run's tree> --checkpoint results/checkpoints/<run> \\
         --out results/<run>
 
-The error plots are not ported (ROADMAP.md queue 1 item 20): each arm's
-stats carry ``"plots": null``. The ghost check also reports
+Each arm's error plot and table go to ``<out>/plots`` under the JAX
+protocol's names, the port's own PNGs (``utils/visualize.py``); the arm's
+stats carry their paths, as JAX's do. The ghost check also reports
 ``n_unclassified``, the valid points that are neither true returns nor
 ghosts. It runs on the card (``--device cuda``, the default; raises without
 one); ``--device cpu`` runs it on the CPU.
@@ -185,7 +186,7 @@ def main(argv=None) -> dict:
                 "--out-traj", osp.join(args.out, f"traj_{label}.txt"),
                 "--max-points", str(sc.max_loc_pts),
                 "--map-gt", map_gt, "--loc-gt", loc_gt, "--stats", stats_p,
-                "--device", device] + extra
+                "--plots-dir", osp.join(args.out, "plots"), "--device", device] + extra
         if "--init-chain" not in extra:
             argv += ["--init-gt", "--init-pos-std", str(args.init_pos_std),
                      "--init-rot-std", str(args.init_rot_std)]
@@ -193,9 +194,6 @@ def main(argv=None) -> dict:
         assert rc == 0, f"localize {label} failed"
         with open(stats_p) as f:
             stats = json.load(f)
-        stats["plots"] = None  # the error plots are not ported (item 20)
-        with open(stats_p, "w") as f:
-            json.dump(stats, f, indent=2)
         summary[label] = stats
         print(f"[deploy] {label}: trans_rmse {stats['trans_rmse']:.4f} m", file=sys.stderr,
               flush=True)

@@ -1,4 +1,5 @@
 from mm_masking_tpu_torch.dicp.icp import (
+    ICP,
     TARGET_PAD_VAL,
     ICPConfig,
     icp,
@@ -6,4 +7,4 @@ from mm_masking_tpu_torch.dicp.icp import (
     robust_weight,
 )
 
-__all__ = ["ICPConfig", "TARGET_PAD_VAL", "icp", "icp_implicit", "robust_weight"]
+__all__ = ["ICP", "ICPConfig", "TARGET_PAD_VAL", "icp", "icp_implicit", "robust_weight"]

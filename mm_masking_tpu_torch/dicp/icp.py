@@ -1,6 +1,7 @@
 """Batched ICP, point-to-point and point-to-plane.
 
-Counterpart of ``mm_masking_tpu.dicp.icp``, in its two modes:
+Counterpart of ``mm_masking_tpu.dicp.icp``, in its two modes, and the
+implicit-gradient solve :func:`icp_implicit` built on the first:
 
 - ``differentiable=False`` (inference): the tolerance-stopped Gauss-Newton
   loop. With ``nn_refresh_dist == 0`` it associates every iteration and
@@ -317,6 +318,22 @@ def icp(
     ``cfg.remat_iters`` is a memory knob of the JAX package and is ignored,
     and the differentiable solve ignores ``cfg.nn_refresh_dist``, as JAX's.
     """
+    inp, stripe = _prepare(source, target, T_init, weight, cfg, T_prior)
+    if cfg.differentiable:
+        T, norms = T_init, []
+        for _ in range(cfg.max_iterations):
+            p = transform_points(T, inp["source"]).detach()
+            T, delta = _gn_step(T, idx=_associate(inp, p, cfg, stripe), **_step_args(inp, cfg))
+            norms.append(torch.linalg.vector_norm(delta, dim=-1))
+        return {"T": T, "delta_norms": torch.stack(norms)}
+    with torch.no_grad():  # the tolerance-stopped solve has no gradient, as in JAX
+        return _solve_to_tolerance(inp, T_init, cfg, stripe)
+
+
+def _prepare(source, target, T_init, weight, cfg: ICPConfig, T_prior=None
+             ) -> tuple[dict, bool]:
+    """A solve's inputs, as its iterations read them, and whether it takes
+    the sorted stripe."""
     source = source[..., :3]
     stripe = cfg.nn_stripe
     if stripe is None:
@@ -344,16 +361,7 @@ def icp(
                     ("weight", weight), ("T_prior", T_prior)):
         if t is not None:
             inp[name] = t
-
-    if cfg.differentiable:
-        T, norms = T_init, []
-        for _ in range(cfg.max_iterations):
-            p = transform_points(T, source).detach()
-            T, delta = _gn_step(T, idx=_associate(inp, p, cfg, stripe), **_step_args(inp, cfg))
-            norms.append(torch.linalg.vector_norm(delta, dim=-1))
-        return {"T": T, "delta_norms": torch.stack(norms)}
-    with torch.no_grad():  # the tolerance-stopped solve has no gradient, as in JAX
-        return _solve_to_tolerance(inp, T_init, cfg, stripe)
+    return inp, stripe
 
 
 def _step_args(inp: dict, cfg: ICPConfig) -> dict:
@@ -510,8 +518,128 @@ def _solve_to_tolerance(inp: dict, T_init: torch.Tensor, cfg: ICPConfig,
     return {**out, "stop_tests": stop_tests}
 
 
-def icp_implicit(source, target, T_init, weight, cfg: ICPConfig):
-    """Converged pose with implicit-function-theorem gradients w.r.t. weight."""
-    raise NotImplementedError(
-        "icp_implicit (implicit-function-theorem gradients) is not ported yet: "
-        "ROADMAP.md queue 1, 'icp_implicit'")
+# ---------------------------------------------------------------------------
+# Implicit differentiation (JAX ``icp.py:648-825``). icp_implicit runs the
+# tolerance-stopped solve to its fixed point and differentiates there by the
+# implicit function theorem: with g(δ, w) = Σᵢ wᵢ mᵢ (Jᵀr)ᵢ = 0 at the
+# solution, dδ*/dw = −H⁻¹ ∂g/∂w with H the GN Hessian (correspondences and
+# robust weights frozen). The backward is one dense association (K1 on the
+# card) and one damped 3×3 solve; gradients reach the per-point weights only.
+# ---------------------------------------------------------------------------
+
+
+def _solve_frozen(source, target, T_init, weight, cfg: ICPConfig) -> torch.Tensor:
+    """The tolerance-stopped solve's pose with no read of the device: all
+    ``max_iterations`` iterations run, each item frozen on the device once
+    it stops (:func:`_iterate`), so the result is the host-tested solve's
+    (:func:`_solve_to_tolerance`) and the solve can sit inside a captured
+    train step."""
+    inp, stripe = _prepare(source, target, T_init, weight, cfg)
+    st = _new_state(T_init, inp["source"].shape[1])
+    _iterate(st, inp, cfg, stripe, cfg.max_iterations)
+    return st["T"]
+
+
+def _planar_generators(T: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 4, 4): d/dδ_k [exp(δ)T] at δ = 0 for the planar dofs (x, y,
+    yaw), E_k T with E_x = e₀e₃ᵀ, E_y = e₁e₃ᵀ, E_yaw = e₁e₀ᵀ − e₀e₁ᵀ: rows
+    of T moved, no arithmetic (and no host scalar copied to the device, so
+    it can be captured)."""
+    z = torch.zeros_like(T[:, :1])
+    last = T[:, 3:]
+    return torch.stack([torch.cat([last, z, z, z], 1), torch.cat([z, last, z, z], 1),
+                        torch.cat([-T[:, 1:2], T[:, :1], z, z], 1)], dim=1)
+
+
+def _residual_terms(T, source, target_pts, target_nrm, weight, source_valid,
+                    cfg: ICPConfig):
+    """The terms at the solution: (Jᵀr)_planar (B, N, 3), the modifier m
+    (B, N) and the planar GN Hessian H (B, 3, 3), from a dense association."""
+    p = transform_points(T, source)
+    idx, _ = nn_argmin(p, target_pts)
+    diff = p - _gather_rows(target_pts, idx)
+    dist = torch.linalg.vector_norm(diff + 1e-30, dim=-1)
+    px, py = p[..., 0], p[..., 1]
+    if cfg.icp_type == "pt2pl":
+        n = _gather_rows(target_nrm, idx)
+        r = (n * diff).sum(-1)
+        r_norm = r.abs()
+        J = torch.stack([n[..., 0], n[..., 1], px * n[..., 1] - py * n[..., 0]], dim=-1)
+        Jt_r = J * r[..., None]
+        H_outer = J[..., :, None] * J[..., None, :]  # the scalar residual's JᵀJ
+    else:
+        r, r_norm = diff, dist
+        Jt_r = torch.stack([r[..., 0], r[..., 1], px * r[..., 1] - py * r[..., 0]], dim=-1)
+        one, zero = torch.ones_like(px), torch.zeros_like(px)
+        # J = [I | −p^], planar rows x, y, yaw: JᵀJ's planar block.
+        H_outer = torch.stack([torch.stack([one, zero, -py], dim=-1),
+                               torch.stack([zero, one, px], dim=-1),
+                               torch.stack([-py, px, px * px + py * py], dim=-1)], dim=-2)
+    active = torch.isfinite(dist) & (dist < cfg.trim_dist)
+    m = robust_weight(torch.where(active, r_norm, 1.0), cfg.loss_name, cfg.loss_metric)
+    m = torch.where(active, m, 0.0) * source_valid
+    Jt_r = torch.where(active[..., None], Jt_r, 0.0)
+    H_outer = torch.where(active[..., None, None], H_outer, 0.0)
+    H = torch.einsum("bn,bnij->bij", m * weight, H_outer)
+    return Jt_r, m, H
+
+
+class _ICPImplicit(torch.autograd.Function):
+    """Forward: the frozen solve's pose. Backward: JAX's
+    ``_icp_implicit_bwd``, the gradient of the weight only."""
+
+    @staticmethod
+    def forward(ctx, source, target, T_init, weight, cfg):
+        T = _solve_frozen(source, target, T_init, weight, cfg)
+        ctx.cfg = cfg
+        ctx.save_for_backward(source, target, T, weight)
+        return T
+
+    @staticmethod
+    def backward(ctx, dT):
+        return None, None, None, _implicit_weight_grad(*ctx.saved_tensors, dT, ctx.cfg), None
+
+
+def _implicit_weight_grad(source, target, T, weight, dT, cfg: ICPConfig) -> torch.Tensor:
+    """dL/dweight (B, N) at the solution T from the pose's cotangent dT."""
+    source = source[..., :3]
+    source_valid = (~((source[..., 0] == 0.0) & (source[..., 1] == 0.0))).to(source.dtype)
+    target_nrm = target[..., 3:6] if target.shape[-1] >= 6 else None
+    Jt_r, m, H = _residual_terms(T, source, target[..., :3], target_nrm, weight, source_valid,
+                                 cfg)
+    # The cotangent on the planar chart: dδ_k = <dT, E_k T>.
+    d_delta = torch.einsum("bxy,bkxy->bk", dT, _planar_generators(T))
+    H = H + cfg.damping * torch.eye(3, dtype=H.dtype, device=H.device)
+    lam = _solve3x3_impl(H, d_delta)
+    # g_k = Σᵢ wᵢ mᵢ (Jᵀr)ᵢₖ; δ* moves as −H⁻¹g, so dL/dwᵢ = −λᵀ mᵢ (Jᵀr)ᵢ.
+    return -torch.einsum("bk,bn,bnk->bn", lam, m, Jt_r)
+
+
+def icp_implicit(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
+                 weight: torch.Tensor, cfg: ICPConfig) -> torch.Tensor:
+    """Converged ICP pose (B, 4, 4) with implicit-function-theorem
+    gradients w.r.t. ``weight`` (B, N); none reach source, target or T_init.
+    The solve is ``cfg``'s, non-differentiable, to tolerance or
+    ``max_iterations``, run with no host read (:func:`_solve_frozen`)."""
+    return _ICPImplicit.apply(source, target, T_init, weight,
+                              dataclasses.replace(cfg, differentiable=False))
+
+
+class ICP:
+    """Object wrapper of :func:`icp` after the reference's ``dICP.ICP``
+    construction pattern (the JAX package's ``dicp.ICP``)."""
+
+    def __init__(self, icp_type: str = "pt2pt", differentiable: bool = True,
+                 max_iterations: int = 10, tolerance: float = 1e-5,
+                 target_pad_val: float = TARGET_PAD_VAL, use_pallas_nn: bool | None = None):
+        self.target_pad_val = target_pad_val
+        self._base = ICPConfig(icp_type=icp_type, max_iterations=max_iterations,
+                               tolerance=tolerance, differentiable=differentiable,
+                               target_pad_val=target_pad_val, use_pallas_nn=use_pallas_nn)
+
+    def icp(self, source, target, T_init, weight=None, trim_dist: float = 5.0,
+            loss_fn: dict | None = None, dim: int = 2) -> dict[str, Any]:
+        loss_fn = loss_fn or {"name": "cauchy", "metric": 1.0}
+        cfg = dataclasses.replace(self._base, trim_dist=trim_dist, loss_name=loss_fn["name"],
+                                  loss_metric=float(loss_fn.get("metric", 1.0)), dim=dim)
+        return icp(source, target, T_init, weight=weight, cfg=cfg)

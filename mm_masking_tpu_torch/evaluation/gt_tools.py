@@ -3,8 +3,9 @@
 
 One decision differs from the JAX package: the planar heading error is
 ``atan2(D[1,0], D[0,0])``, where the JAX package takes ``arcsin(D[1,0])``,
-which folds headings beyond ±90° back (the two agree within ±90°). Error
-plots (``plots_dir``) are not ported.
+which folds headings beyond ±90° back (the two agree within ±90°). The
+error plots (``plots_dir``) are the port's own PNGs
+(:mod:`mm_masking_tpu_torch.utils.visualize`), under the JAX file names.
 
 Replaces the reference's offline GT scripts (`utils/extract_loc_gt_v2.py`,
 `extract_loc_gt.py`, `extract_odo_gt.py` — SURVEY.md §2.1): align estimated
@@ -27,6 +28,7 @@ from mm_masking_tpu_torch.data.boreas import (
     get_inverse_tf,
     read_traj_file_gt2,
 )
+from mm_masking_tpu_torch.utils.visualize import save_loc_error_plots
 
 
 def read_traj_file(path: str):
@@ -129,12 +131,10 @@ def eval_localization_run(
     ONE global teach map expressed in the first keyframe's frame, which is
     what the localize CLI's `teach`-built map is; closest-in-TIME against
     such runs picks an arbitrary teach row and reports a route-length
-    offset as error). ``plots_dir`` raises: the error plots are not ported.
+    offset as error). ``plots_dir``: the error-over-trajectory image and CSV
+    of :func:`mm_masking_tpu_torch.utils.visualize.save_loc_error_plots`
+    go there, and ``stats["plots"]`` holds their paths.
     """
-    if plots_dir is not None:
-        raise NotImplementedError(
-            "error plots (plots_dir) are not ported yet: ROADMAP.md queue 1 item 20, "
-            "'run artifacts'")
     est_poses, est_times = read_traj_file(est_path)
     map_gt_poses, map_gt_times = read_traj_file_gt2(map_gt_csv, dim=2)
     loc_gt_poses, loc_gt_times = read_traj_file_gt2(loc_gt_csv, dim=2)
@@ -164,6 +164,10 @@ def eval_localization_run(
         "trans_max": float(trans.max()),
         "rot_max": float(rot.max()),
     }
+    if plots_dir is not None:
+        rs, lon, lat = relative_loc_error_components(est_poses, gt_rel)
+        stats["plots"] = save_loc_error_plots(np.asarray(times), rs, lon, lat, plots_dir,
+                                              seq_name)
     return stats
 
 

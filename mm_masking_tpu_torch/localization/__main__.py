@@ -382,7 +382,8 @@ def main(argv=None) -> int:
     loc.add_argument("--loc-gt", default="", help="Applanix GT CSV of the localized sequence")
     loc.add_argument("--out-gt", default="", help="write the aligned GT trajectory here")
     loc.add_argument("--stats", default="", help="write the error stats JSON here")
-    loc.add_argument("--plots-dir", default="", help="error plots (not ported; raises)")
+    loc.add_argument("--plots-dir", default="",
+                     help="with GT: write the error-over-trajectory PNG and CSV here")
     loc.add_argument("--map-frame", default="first", choices=["first", "closest_time"],
                      help="GT map pose for --stats: 'first' = the teach CSV's row 0 (maps "
                           "built by teach); 'closest_time' = the closest teach row per frame")

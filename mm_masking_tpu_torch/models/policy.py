@@ -16,7 +16,7 @@ import torch
 from torch.func import functional_call
 
 from mm_masking_tpu_torch.config import Config
-from mm_masking_tpu_torch.dicp import ICPConfig, icp
+from mm_masking_tpu_torch.dicp import ICPConfig, icp, icp_implicit
 from mm_masking_tpu_torch.models.unet import UNet
 from mm_masking_tpu_torch.ops import (
     cfar_mask,
@@ -158,7 +158,7 @@ class LearnICPWeightPolicy:
             x = (x - c_mean) / torch.clamp(c_std, min=1e-30)
         mask = functional_call(self.unet, params, (x.to(m.torch_dtype),),
                                {"train": train, "generator": generator})
-        return mask.float()
+        return mask  # float32: the UNet head computes in float32
 
     def mask_for_scan(self, params: dict, fft_polar: torch.Tensor,
                       azimuths: torch.Tensor) -> torch.Tensor:
@@ -201,15 +201,13 @@ class LearnICPWeightPolicy:
         'raw_pc' (B, N, 3), 'filtered_pc' (B, N, 3)}; batch_map: {'pc' (B, M, 6)}.
 
         ``train``: dropout masks from ``generator`` (on the policy's device)
-        and the unrolled differentiable ICP of ``model.max_iter`` iterations;
-        without the ICP loss terms (``use_icp_4_train`` false) the solver is
-        skipped and T_pred is T_init.
+        and the unrolled differentiable ICP of ``model.max_iter`` iterations
+        (with ``icp_diff_mode="implicit"``, :func:`icp_implicit` at
+        max(5·max_iter, 50) iterations instead); without the ICP loss terms
+        (``use_icp_4_train`` false) the solver is skipped and T_pred is
+        T_init.
         """
         m = self.cfg.model
-        if train and m.icp_diff_mode == "implicit":
-            raise NotImplementedError(
-                "icp_diff_mode='implicit' is not ported yet: ROADMAP.md queue 1 "
-                "item 9, 'icp_implicit'")
         if override_mask is None:
             weight_mask = self.compute_mask(
                 params, batch_scan["fft_data"], batch_scan.get("fft_cfar"),
@@ -235,6 +233,14 @@ class LearnICPWeightPolicy:
         mean_all_pts = non0.sum() / raw.shape[0]
         if train and not self.cfg.use_icp_4_train:
             return PolicyOutput(T_init, weight_mask, stats.diff_mean_num_non0, stats,
+                                mean_all_pts)
+        if train and m.icp_diff_mode == "implicit":
+            # The solve to tolerance, differentiated at its fixed point.
+            cfg_icp = dataclasses.replace(self._icp_inference,
+                                          max_iterations=max(m.max_iter * 5, 50), dim=2)
+            T_est = icp_implicit(batch_scan["filtered_pc"], batch_map["pc"], T_init, weights,
+                                 cfg_icp)
+            return PolicyOutput(T_est, weight_mask, stats.diff_mean_num_non0, stats,
                                 mean_all_pts)
         result = icp(
             batch_scan["filtered_pc"], batch_map["pc"], T_init, weight=weights,

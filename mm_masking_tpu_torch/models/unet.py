@@ -7,7 +7,8 @@ Reference architecture (``icp_weight_policy.py``):
   * each decoder block is applied twice with the same weights, once on the
     upsampled features and once on ``cat([skip, x])``;
   * bilinear upsampling with align_corners (index math in float32);
-  * a final 1×1 conv and a sigmoid.
+  * a final 1×1 conv and a sigmoid, both in float32: the mask leaves the
+    UNet as float32 whatever the conv type.
 
 Every 3×3 conv goes through the CUDA kernels of
 :mod:`mm_masking_tpu_torch.ops.kernels.conv2d` on a CUDA input (forward and
@@ -44,13 +45,19 @@ def upsample_bilinear_align_corners(
 
 def conv1x1(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """1×1 conv of x (B, C, H, W) with weight (Co, C, 1, 1) and bias (Co,),
-    both rounded to x's type, as a matrix product over C (float32 sums, TF32
-    off). Not ``F.conv2d``: cuDNN's float32 weight gradient of this conv adds
-    with atomics on the card, where the gradients of the product are matrix
-    products and a sum over the batch, the same bits every run."""
+    both rounded to x's type, as a matrix product over C in float32 (TF32
+    off): the products of x's values are exact, the sum and the bias are
+    float32, and so is the result, whatever x's type. A bfloat16 x so gives
+    the head what an XLA fusion of the conv, the bias and the sigmoid gives
+    on the TPU, with no rounding of the logits to 8 bits (ROADMAP §3 fault
+    4); a float32 x is unchanged. Not ``F.conv2d``: cuDNN's float32 weight
+    gradient of this conv adds with atomics on the card, where the gradients
+    of the product are matrix products and a sum over the batch, the same
+    bits every run."""
     B, C, H, W = x.shape
-    y = torch.matmul(weight.to(x.dtype)[:, :, 0, 0], x.reshape(B, C, H * W))
-    return (y + bias.to(x.dtype)[:, None]).reshape(B, -1, H, W)
+    w = weight.to(x.dtype)[:, :, 0, 0].float()
+    y = torch.matmul(w, x.reshape(B, C, H * W).float())
+    return (y + bias.to(x.dtype).float()[:, None]).reshape(B, -1, H, W)
 
 
 class Conv3x3(nn.Module):

@@ -30,8 +30,14 @@ def save_checkpoint(directory: str, name: str, state: dict) -> str:
 
 
 def load_checkpoint(directory: str, name: str, map_location=None) -> dict:
-    return torch.load(_path(directory, name), map_location=map_location,
-                      weights_only=True)
+    path = _path(directory, name)
+    orbax_dir = os.path.join(os.path.abspath(directory), name)
+    if not os.path.exists(path) and os.path.isdir(orbax_dir):
+        raise FileNotFoundError(
+            f"{path} not found, but {orbax_dir} is: a JAX (orbax) checkpoint. Convert it "
+            f"with `python scripts/convert_jax_checkpoint.py {directory} --name {name}`, "
+            "where the JAX package is installed")
+    return torch.load(path, map_location=map_location, weights_only=True)
 
 
 def load_policy_variables(directory: str, name: str = "best_policy",

@@ -16,8 +16,13 @@ CUDA graph, captured once per state and batch shapes and then replayed
 (:mod:`mm_masking_tpu_torch.graphs`); the eval step's solve replays its
 own graphs. ``ops.kernels.eager()`` runs both eagerly for comparison, and
 on the CPU they always run eagerly.
-The JAX package's image artifacts (PNG masks) and remote uploader are not
-ported: the port logs its scalars to the JSONL log only.
+
+As in the JAX package, ``fit`` writes the validation artifacts (the learned
+mask of the first validation item before training and after every epoch;
+before training also its raw scan, CFAR, FFT-threshold and map-BEV masks)
+as PNGs into the logger's artifact directory, and streams the run's
+parameters, every logged record and the best checkpoint through the
+logger's uploader (a no-op without ``MM_UPLOAD_URL``).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from mm_masking_tpu_torch.train.loss import (
 )
 from mm_masking_tpu_torch.train.metrics import MetricsLogger
 from mm_masking_tpu_torch.train.optim import Optimizer, make_optimizer
+from mm_masking_tpu_torch.utils.visualize import save_mask_image
 
 
 @dataclasses.dataclass
@@ -238,14 +244,18 @@ class Trainer:
         mean_comp["notfinite_count"] = float(state.opt.total_notfinite)
         return state, float(torch.stack(losses).mean()), mean_comp
 
-    def validate(self, params: dict, batches: Iterable, binary: bool = False):
+    def validate(self, params: dict, batches: Iterable, binary: bool = False,
+                 epoch: int | None = None, dump_artifacts: bool = False):
         """Mean error triple over the batches, and the weight statistics:
         (err (3,), mean_num_pc, mean_w, max_w, min_w). One host readback at
-        the end."""
+        the end, and with ``dump_artifacts`` one after the first batch, whose
+        artifacts :meth:`_dump_artifacts` writes."""
         errs, num_pc, ws, max_ws, min_ws = [], [], [], [], []
-        for batch in batches:
-            err, stats, _ = self.eval_step(params, to_device(batch, self.device),
-                                           binary=binary)
+        for n, batch in enumerate(batches):
+            batch = to_device(batch, self.device)
+            err, stats, mask = self.eval_step(params, batch, binary=binary)
+            if dump_artifacts and n == 0:
+                self._dump_artifacts(batch, mask, epoch)
             errs.append(err)
             num_pc.append(stats.mean_num_non0)
             ws.append(stats.mean_w)
@@ -258,6 +268,29 @@ class Trainer:
             float(torch.stack(max_ws).max()),
             float(torch.stack(min_ws).min()),
         )
+
+    @torch.no_grad()
+    def _dump_artifacts(self, batch: dict, mask: torch.Tensor, epoch: int | None) -> None:
+        """The JAX package's validation artifacts, as PNGs in the logger's
+        artifact directory: ``learned_mask_e<epoch>`` (``learned_mask_epre``
+        before training) of the first item; before training (epoch < 0) also its
+        ``raw_scan``, ``cfar_mask``, ``fft_mask`` (FFT over 3× the scan's
+        mean) and ``map_mask`` (the map's BEV)."""
+        art_dir = self.logger.art_dir
+        tag = "pre" if (epoch is None or epoch < 0) else str(epoch)
+        save_mask_image(mask[0].cpu().numpy(), art_dir, f"learned_mask_e{tag}")
+        if epoch is None or epoch >= 0:
+            return
+        m = self.cfg.model
+        fft = batch["loc_data"]["fft_data"]
+        save_mask_image(fft[0].cpu().numpy(), art_dir, "raw_scan")
+        save_mask_image(batch["loc_data"]["fft_cfar"][0].cpu().numpy(), art_dir, "cfar_mask")
+        fft_mask = (fft > 3.0 * fft.mean(dim=(1, 2), keepdim=True)).float()
+        save_mask_image(fft_mask[0].cpu().numpy(), art_dir, "fft_mask")
+        bev = extract_bev_from_pts(batch["map_data"]["pc"][..., :3],
+                                   cart_pixel_width=m.cart_pixel_width,
+                                   cart_resolution=m.cart_resolution)
+        save_mask_image(bev[0].cpu().numpy(), art_dir, "map_mask")
 
     @torch.no_grad()
     def generate_baseline(self, state: TrainState, batches: Iterable,
@@ -323,7 +356,8 @@ class Trainer:
         state.opt.load_state_dict(ckpt["opt"])
         state.step, state.epoch = ckpt["step"], ckpt["epoch"]
         state.best_norm = ckpt["best_norm"]
-        state.generator.set_state(ckpt["generator"])
+        if ckpt["generator"] is not None:  # None: converted from JAX, no dropout stream
+            state.generator.set_state(ckpt["generator"])
         return state
 
     def resume(self, state: TrainState | None = None) -> TrainState:
@@ -352,6 +386,7 @@ class Trainer:
         ckpt_dir = cfg.train.checkpoint_dir
         binary = cfg.model.binary_inference
 
+        log.uploader.log_params(log.run_name, dataclasses.asdict(cfg))
         os.makedirs(ckpt_dir, exist_ok=True)
         with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
             json.dump(dataclasses.asdict(cfg), f, indent=1)
@@ -365,7 +400,8 @@ class Trainer:
                              "val_init": va_init, "val_ones": va_ones,
                              "elapsed": time.time() - t0})
 
-        err, *_ = self.validate(state.params, val_batches_fn(), binary=binary)
+        err, *_ = self.validate(state.params, val_batches_fn(), binary=binary, epoch=-1,
+                                dump_artifacts=True)
         best_norm = float(err[0])
         log.log("pretrain_val", {"norm": best_norm, "rot": float(err[1]),
                                  "trans": float(err[2])})
@@ -377,7 +413,7 @@ class Trainer:
 
             tic = time.time()
             err, mean_num_pc, mean_w, max_w, min_w = self.validate(
-                state.params, val_batches_fn(), binary=binary)
+                state.params, val_batches_fn(), binary=binary, epoch=epoch, dump_artifacts=True)
             val_time = time.time() - tic
             norm = float(err[0])
 
@@ -403,4 +439,7 @@ class Trainer:
         err, *_ = self.validate(best, val_batches_fn(), binary=binary)
         log.log("final_val", {"norm": float(err[0]), "rot": float(err[1]),
                               "trans": float(err[2])})
+        best_path = os.path.join(ckpt_dir, "best_policy.pt")
+        if log.uploader.enabled and os.path.isfile(best_path):
+            log.uploader.upload_file(log.run_name, best_path)
         return state

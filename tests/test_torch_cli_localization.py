@@ -346,14 +346,6 @@ def test_cli_refusals(tmp_path, world):
     with pytest.raises(NotImplementedError, match="item 14"):
         cli.main(["teach", "--scans", str(tmp_path / "s"), "--out-map", str(tmp_path / "m.npz"),
                   "--interp-period-us", "50000"] + CPU)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        np.savez_compressed(tmp_path / "m6.npz",
-                            map_pc=np.concatenate([world, np.zeros_like(world)], -1))
-        write_csv(tmp_path / "gt.csv", [(1, 0.0, 0.0, 0.0)])
-        cli.main(loc + ["--map", str(tmp_path / "m6.npz"), "--icp-type", "pt2pt",
-                        "--normal-threshold", "1.0", "--map-gt", str(tmp_path / "gt.csv"),
-                        "--loc-gt", str(tmp_path / "gt.csv"), "--plots-dir",
-                        str(tmp_path / "plots")] + CPU)
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(loc + ["--map", str(tmp_path / "bad.npz"), "--icp-type", "pt2pt"])

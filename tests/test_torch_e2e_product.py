@@ -237,12 +237,15 @@ def test_generate_baseline_matches_jax(baseline_inputs, mask_kind):
 
 
 def test_bf16_recipe_mask_ties_at_its_max_in_both_packages(baseline_inputs):
-    """ROADMAP §3 fault 1 on the recipe's own data: in bfloat16 the mask's
-    sigmoid takes a handful of values near its max, so pixels tie at each
-    image's max in the port and in the JAX package alike (the masks from the
-    same converted parameters within two bf16 ulps), and one train step's
-    grad_norm reaches 1e5 and more in both. The JAX r5 run on the TPU logged
-    at most 47.7; the port's full-scale run on the H100 logs 1e5 (PERF.md)."""
+    """ROADMAP §3 faults 1 and 4 on the recipe's own data. In the JAX
+    package on the CPU the bfloat16 head's sigmoid takes a handful of values
+    near its max, so pixels tie at each image's max, and one train step's
+    grad_norm reaches 1e5 and more: the reference's behaviour, kept on
+    record. The port's head sums, adds its bias and takes its sigmoid in
+    float32 (as the TPU run effectively did), so its float32 mask is within
+    two bf16 ulps of JAX's, no pixel ties at an image's max, and the step's
+    grad_norm stays under 100 (the JAX r5 run on the TPU logged at most
+    47.7)."""
     cfg, _, _ = baseline_inputs
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype="bfloat16"),
                               train=dataclasses.replace(cfg.train, clip_value=10.0))
@@ -261,14 +264,19 @@ def test_bf16_recipe_mask_ties_at_its_max_in_both_packages(baseline_inputs):
     jmask = np.asarray(jtr.policy.compute_mask(jstate.variables, jbatch["loc_data"]["fft_data"],
                                                jbatch["loc_data"]["fft_cfar"], train=False)[0])
     with torch.no_grad():
-        mask = trainer.policy.compute_mask(state.params, loc["fft_data"], loc["fft_cfar"]).numpy()
+        mask = trainer.policy.compute_mask(state.params, loc["fft_data"], loc["fft_cfar"])
+    assert mask.dtype == torch.float32
+    mask = mask.numpy()
     assert np.abs(mask - jmask).max() <= 2 * 2.0 ** -8
-    for m in (mask, jmask):
-        assert np.unique(m).size <= 32
-        assert ((m >= m.max(axis=(1, 2), keepdims=True)).sum((1, 2)) > 1).any()
+
+    def ties(m):
+        return (m >= m.max(axis=(1, 2), keepdims=True)).sum((1, 2))
+
+    assert np.unique(jmask).size <= 32 and (ties(jmask) > 1).any()
+    assert np.unique(mask).size > 1000 and (ties(mask) == 1).all()
     _, _, _, jgn = jtr._train_step(jstate, jbatch, mask_losses_active=True)
     _, _, _, gn = trainer.train_step(state, batch)
-    assert float(jgn) > 1e5 and gn.item() > 1e5
+    assert float(jgn) > 1e5 and gn.item() < 100.0
 
 
 def test_entry_points_raise_without_a_card(tmp_path):

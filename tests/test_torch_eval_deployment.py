@@ -5,7 +5,7 @@
 trained once for the module (``e2e_product --scale tiny``), the protocol
 with ``--device cpu`` writes ``deploy_summary.json`` with the keys of the
 JAX run's (``results/e2e_product_r5/deploy_summary.json``), each arm's stats
-with JAX's keys (``plots`` null: the plots are not ported) and every number
+with JAX's keys (``plots``: the error plots under JAX's file names) and every number
 finite; the ghost check's true, ghost and unclassified counts partition the
 valid points of the scans it reads.
 """
@@ -17,6 +17,7 @@ import math
 import os
 import pathlib
 
+import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 import torch
@@ -63,7 +64,12 @@ def test_protocol_writes_the_jax_summary(protocol):
     assert set(summary) == set(want) - {"note"}
     for arm in ARMS:
         assert set(summary[arm]) == set(want[arm]), arm
-        assert summary[arm]["plots"] is None
+        plots = summary[arm]["plots"]
+        assert set(plots) == set(want[arm]["plots"]), arm
+        for kind, path in plots.items():
+            assert os.path.basename(path) == os.path.basename(want[arm]["plots"][kind])
+            assert os.path.isfile(workdir / path)
+        assert plt.imread(workdir / plots["png"]).ndim == 3
         assert read_json(workdir / "out" / f"stats_{arm}.json") == summary[arm]
         assert summary[arm]["n_frames"] == e2e.TINY.n_val
         assert os.path.exists(workdir / "out" / f"traj_{arm}.txt")

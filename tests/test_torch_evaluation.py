@@ -16,6 +16,7 @@ import os
 
 import jax
 import jax.numpy as jnp
+import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 import torch
@@ -251,7 +252,8 @@ def make_T(x, y, h):
 @pytest.mark.parametrize("map_frame", ["closest_time", "first"])
 def test_gt_tools_match_jax(tmp_path, map_frame):
     """An estimated trajectory with heading errors within ±90° against the
-    Applanix CSVs: the same statistics and aligned GT file as JAX's."""
+    Applanix CSVs: the same statistics and aligned GT file as JAX's, and
+    with ``plots_dir`` the error plot and table under JAX's names."""
     rng = np.random.default_rng(9)
     times = [1_000_000 + 100_000 * i for i in range(8)]
     loc_rows = [(t, 10 + i, 5 - 0.5 * i, 0.1 * i) for i, t in enumerate(times)]
@@ -274,10 +276,20 @@ def test_gt_tools_match_jax(tmp_path, map_frame):
     assert gt_tools.read_traj_file(str(tmp_path / "t_gt.txt"))[1] == times
     assert gt_tools.check_time_match(times, times) and not gt_tools.check_time_match(
         [times[0] + 7], times)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        gt_tools.eval_localization_run(str(tmp_path / "est.txt"), str(tmp_path / "map.csv"),
-                                       str(tmp_path / "loc.csv"), plots_dir=str(tmp_path))
-    assert not os.path.exists(tmp_path / "plots")
+    # plots_dir: JAX's file names; the CSV's numbers JAX's; the PNG the port's own.
+    args = [str(tmp_path / n) for n in ("est.txt", "map.csv", "loc.csv")]
+    jplots = jgt.eval_localization_run(*args, plots_dir=str(tmp_path / "j"), seq_name="s",
+                                       **kw)["plots"]
+    plots = gt_tools.eval_localization_run(*args, plots_dir=str(tmp_path / "t"), seq_name="s",
+                                           **kw)["plots"]
+    assert {k: os.path.basename(v) for k, v in plots.items()} == {
+        k: os.path.basename(v) for k, v in jplots.items()}
+    assert plots["png"] == str(tmp_path / "t" / "s_loc_errors.png")
+    np.testing.assert_allclose(np.loadtxt(plots["csv"], delimiter=",", skiprows=1),
+                               np.loadtxt(jplots["csv"], delimiter=",", skiprows=1),
+                               rtol=0, atol=2e-6)
+    img = plt.imread(plots["png"])
+    assert img.shape == (3 * 220 + 2 * 2, 900, 3) and img.min() < img.max()
 
 
 def test_heading_error_unfolds_beyond_90_degrees():

@@ -476,11 +476,10 @@ def test_train_step_runs_the_kernels(cuda, dtype):
         assert abs(gnorm.item() - gnorm_p.item()) <= 1e-2 * gnorm_p.item()
     else:
         # Each activation is rounded to 8 bits on both paths, and a sum in
-        # another order can flip that rounding. grad_norm is not compared:
-        # in bfloat16 several mask pixels tie at the image's max, and the
-        # BCE's 1/max(p(1-p), 1e-12) at p = 1 no longer cancels through the
-        # normalisation, so it reaches ~1e7 on both paths (and in the JAX
-        # package) and depends on which pixels tie.
+        # another order can flip that rounding. grad_norm is not compared
+        # here (the bf16 mask's ties at its max made it reach ~1e7 until the
+        # head computed in float32, ROADMAP §3 fault 4); chip_smoke.py's e2e
+        # and implicit phases compare it at full width.
         assert abs(loss.item() - loss_p.item()) <= 2e-2 * abs(loss_p.item())
 
 
@@ -523,6 +522,93 @@ def test_train_step_graph_replays_match_eager_steps(cuda):
     assert len(graph_state.graphs) == 1 and not eager_state.graphs
     assert int(graph_state.opt.count) == int(eager_state.opt.count) == 3
     assert torch.equal(graph_state.generator.get_state(), eager_state.generator.get_state())
+
+
+@pytest.mark.parametrize("icp_type", ["pt2pt", "pt2pl"])
+def test_implicit_train_step_matches_the_cpu_and_plain(cuda, icp_type):
+    """icp_diff_mode="implicit" on the card: the step is one CUDA graph, the
+    forward's solve (50 iterations, items frozen on the device) runs K4 and
+    the backward's dense association K1, once a step; its first step equals
+    the plain path's (loss 1e-5, grad_norm 1e-3 relative, chip_smoke.py's
+    implicit limits) and the CPU port's (loss 1e-5; grad_norm 1e-2, the
+    limit test_train_step_runs_the_kernels holds at these widths: the
+    mask-points BCE's gradient at the mask's max moves with the convs' order
+    of summation, ROADMAP §3 open fault 2; 4.2e-3 measured)."""
+    trainer, spec = small_trainer(cuda, max_iter=3, dropout=0.0, icp_diff_mode="implicit",
+                                  icp_type=icp_type)
+    batch = synthetic_batch(6, 4, spec, device=cuda)
+    state = trainer.init_state(3)
+    trainer.capture_train_step(state, batch)
+    reset_launch_counts()
+    _, loss, _, gn = trainer.train_step(state, batch)
+    counts = launch_counts()
+    assert len(state.graphs) == 1 and counts["nn_argmin"] == 1 and counts["nn_stripe"] == 50
+    cpu = Trainer(trainer.cfg, "cpu")
+    _, loss_c, _, gn_c = cpu.train_step(cpu.init_state(3), synthetic_batch(6, 4, spec))
+    with plain_versions():
+        _, loss_p, _, gn_p = trainer.train_step(trainer.init_state(3), batch)
+    for want_loss, want_gn, limit in ((loss_p, gn_p, 1e-3), (loss_c, gn_c, 1e-2)):
+        d_loss = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        d_gn = abs(gn.item() - want_gn.item()) / want_gn.item()
+        assert d_loss <= 1e-5 and d_gn <= limit, (d_loss, d_gn, limit)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mask_head_on_the_card_matches_the_cpu(cuda, dtype):
+    """The UNet's float32 head (ROADMAP §3 fault 4) on the card: a float32
+    mask within 1e-4 (float32) or 5e-2 (bfloat16, each activation rounded to
+    8 bits on both devices) of the CPU's, and in bfloat16 no pixel tied at
+    an image's max."""
+    trainer, spec = small_trainer(cuda, dtype=dtype)
+    params = trainer.init_state(3).params
+    batch = synthetic_batch(6, 4, spec)
+    loc = batch["loc_data"]
+    cpu = Trainer(trainer.cfg, "cpu")
+    with torch.inference_mode():
+        mask = trainer.policy.compute_mask(params, loc["fft_data"].to(cuda),
+                                           loc["fft_cfar"].to(cuda))
+        want = cpu.policy.compute_mask(cpu.init_state(3).params, loc["fft_data"],
+                                       loc["fft_cfar"])
+    assert mask.dtype == want.dtype == torch.float32
+    limit = 1e-4 if dtype == "float32" else 5e-2
+    assert (mask.cpu() - want).abs().max().item() <= limit
+    ties = (mask >= mask.amax(dim=(1, 2), keepdim=True)).sum((1, 2))
+    assert dtype == "float32" or (ties == 1).all()
+
+
+def png_pixels(path) -> tuple[int, int, int]:
+    """(width, height, bytes of pixel data) of a PNG, decompressed."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n" and data[12:16] == b"IHDR"
+    width, height = struct.unpack(">II", data[16:24])
+    idat, pos = b"", 8
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        idat += data[pos + 8:pos + 8 + n] if tag == b"IDAT" else b""
+        pos += 12 + n
+    return width, height, len(zlib.decompress(idat))
+
+
+def test_fit_writes_the_artifacts_on_the_card(cuda, tmp_path):
+    """fit on cuda writes the JAX package's artifact set as 8-bit grayscale
+    PNGs of the mask's size."""
+    import os
+
+    trainer, spec = small_trainer(cuda, max_iter=2, inference_max_iter=4)
+    trainer = Trainer(dataclasses.replace(trainer.cfg, train=dataclasses.replace(
+        trainer.cfg.train, checkpoint_dir=str(tmp_path), num_epochs=1)), cuda)
+    train = [synthetic_batch(1, 4, spec)]
+    val = [synthetic_batch(2, 4, spec)]
+    trainer.fit(lambda epoch: train, lambda: val)
+    names = sorted(os.listdir(tmp_path / "run_artifacts"))
+    assert names == sorted(f"{n}.png" for n in ("learned_mask_epre", "learned_mask_e0",
+                                                "raw_scan", "cfar_mask", "fft_mask",
+                                                "map_mask"))
+    for name in names:
+        assert png_pixels(tmp_path / "run_artifacts" / name) == (128, 128, 128 * 129), name
 
 
 def test_graph_eval_step_matches_eager(cuda):
@@ -1221,10 +1307,9 @@ def test_recipe_bf16_pt2pl_train_step_matches_eager_and_plain(cuda, tmp_path):
     1e-6 relative, parameters 1e-5 of the largest |p|), and the first step
     against the plain path: the loss within 2e-2 relative (bf16 rounds each
     activation to 8 bits on both paths, and a sum in another order can flip
-    a rounding). grad_norm is not compared with the plain path here: at
-    these widths bf16 mask pixels tie at the image's max and the BCE's
-    gradient reaches 1e7 on both paths and in the JAX package, depending on
-    which pixels tie (ROADMAP §3, fault 1); ``chip_smoke.py``'s e2e phase
+    a rounding). grad_norm is not compared with the plain path here (it
+    reached 1e7 while the bf16 mask tied at its max, before the head
+    computed in float32, ROADMAP §3 fault 4); ``chip_smoke.py``'s e2e phase
     compares it at full width."""
     trainer, batch = recipe_batch(cuda, tmp_path)
     graph_state, eager_state = trainer.init_state(), trainer.init_state()

@@ -8,6 +8,7 @@ held to ``jax.grad``: ∂T/∂weight within 1e-3 of its largest entry.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import math
@@ -19,11 +20,15 @@ import numpy as np
 import pytest
 import torch
 
-from mm_masking_tpu.dicp import ICPConfig as JICPConfig, icp as jicp
+from mm_masking_tpu.dicp import ICP as JICP, ICPConfig as JICPConfig, icp as jicp
+from mm_masking_tpu.dicp import icp_implicit as jicp_implicit
+from mm_masking_tpu.dicp.icp import _icp_implicit_bwd as jimplicit_bwd
 from mm_masking_tpu.dicp.icp import _solve3x3 as jsolve3x3
-from mm_masking_tpu_torch.dicp import TARGET_PAD_VAL, ICPConfig, icp, icp_implicit
-from mm_masking_tpu_torch.dicp.icp import _solve3x3
+from mm_masking_tpu_torch.dicp import ICP, TARGET_PAD_VAL, ICPConfig, icp, icp_implicit
+from mm_masking_tpu_torch.dicp.icp import _implicit_weight_grad, _solve3x3, _solve_frozen
 from mm_masking_tpu_torch.geom import se3_exp
+from test_torch_e2e_product import one_thread  # noqa: F401
+from test_torch_train import no_host_reads
 
 
 def scene(seed, B=3, N=256, M=2048, n_pad_src=16, n_pad_map=96):
@@ -124,14 +129,6 @@ def test_chunked_inference_icp_matches_the_per_iteration_loop(monkeypatch, max_i
     np.testing.assert_allclose(T_g[:, :3, :3], T_w[:, :3, :3], rtol=0, atol=1e-5)
     np.testing.assert_array_equal(np.asarray(want["delta_norm"]) < 1e-5, stopped)
     assert abs(int(got["iterations"]) - int(want["iterations"])) <= (max_iterations == 50)
-
-
-@pytest.mark.parametrize("mode", ["implicit"])
-def test_icp_refuses_unported_modes(mode):
-    src, tgt, T_init, _ = scene(seed=5, B=1, N=64, M=256)
-    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        icp_implicit(*args, None, ICPConfig(differentiable=False))
 
 
 GATED = dict(max_iterations=50, tolerance=1e-5, differentiable=False, nn_stripe_window=512,
@@ -290,3 +287,86 @@ def test_solve3x3_backward_matches_jax(damped_dead):
 
 def test_icp_config_fields_match_jax():
     assert dataclasses.asdict(ICPConfig()) == dataclasses.asdict(JICPConfig())
+
+
+@pytest.mark.parametrize("icp_type,limit", [("pt2pt", 1e-4), ("pt2pl", 1e-3)])
+def test_icp_implicit_matches_jax(icp_type, limit):
+    """The solve to tolerance and its implicit-function-theorem gradient
+    (the stripe association in the forward, the dense one in the backward,
+    as in JAX): the pose within the ICP tests' 1e-4 m / 1e-5 rad; the
+    backward at JAX's own pose within 1e-6 of max |g| of JAX's; and
+    ∂(Σ c·T)/∂weight against jax.grad within ``limit`` of max |g|. The last
+    carries the two poses' difference (1.4e-7 here): pt2pl's gradient is
+    −λᵀm(Jᵀr) with r the point-to-plane residual, and at the fixed point
+    many residuals are near 0, so it moves 1.8e-4 of max |g| with it."""
+    src, tgt, T_init, weight = scene(seed=7 if icp_type == "pt2pt" else 6, B=2, N=128, M=1024)
+    cfg = dict(icp_type=icp_type, max_iterations=50, tolerance=1e-5, nn_stripe=True,
+               nn_stripe_window=256, nn_stripe_tile=64)
+    cot = np.random.default_rng(8).standard_normal((2, 4, 4)).astype(np.float32)
+
+    def jloss(w):
+        T = jicp_implicit(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(T_init), w,
+                          JICPConfig(**cfg))
+        return jnp.sum(T * cot), T
+
+    (_, T_w), j_grad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(weight))
+    w = torch.from_numpy(weight).requires_grad_(True)
+    T = icp_implicit(torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init), w,
+                     ICPConfig(**cfg))
+    (t_grad,) = torch.autograd.grad((T * torch.from_numpy(cot)).sum(), (w,))
+    T_w, T_g = np.asarray(T_w), T.detach().numpy()
+    np.testing.assert_allclose(T_g[:, :3, 3], T_w[:, :3, 3], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(T_g[:, :3, :3], T_w[:, :3, :3], rtol=0, atol=1e-5)
+    j_grad = np.asarray(j_grad)
+    scale = np.abs(j_grad).max()
+    assert scale > 0 and torch.isfinite(t_grad).all()
+    np.testing.assert_allclose(t_grad.numpy(), j_grad, rtol=0, atol=limit * scale)
+    # The backward alone, at JAX's pose.
+    *_, j_at = jimplicit_bwd(JICPConfig(**cfg), (jnp.asarray(src), jnp.asarray(tgt),
+                                                 jnp.asarray(T_w), jnp.asarray(weight)),
+                             jnp.asarray(cot))
+    t_at = _implicit_weight_grad(torch.from_numpy(src), torch.from_numpy(tgt),
+                                 torch.from_numpy(T_w.copy()), torch.from_numpy(weight),
+                                 torch.from_numpy(cot), ICPConfig(**cfg))
+    np.testing.assert_allclose(t_at.numpy(), np.asarray(j_at), rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("refresh", [0.0, 0.05])
+@pytest.mark.parametrize("stripe", [True, False])
+def test_frozen_solve_equals_the_host_tested_solve(stripe, refresh):
+    """icp_implicit's forward runs every iteration with each item frozen on
+    the device (no host read, so it can sit in a captured train step); its
+    pose is the chunked, host-tested solve's bit for bit, on items that stop
+    at different iterations, ungated and motion-gated. (The stripe's plain
+    version, which the CPU runs, reads its block counts on the host; K4
+    does not, so the read check runs on the dense path.)"""
+    src, tgt, T_init, weight = staggered_scene()
+    cfg = ICPConfig(icp_type="pt2pt", max_iterations=50, tolerance=1e-5, differentiable=False,
+                    nn_stripe=stripe, nn_stripe_window=512, nn_stripe_tile=64,
+                    nn_refresh_dist=refresh)
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init),
+            torch.from_numpy(weight))
+    want = icp(*args[:3], weight=args[3], cfg=cfg)
+    assert want["stop_tests"] > 0 and int(want["iterations"]) < 50
+    with contextlib.nullcontext() if stripe else no_host_reads():
+        got = _solve_frozen(*args, cfg)
+    assert torch.equal(got, want["T"])
+
+
+def test_icp_class_is_icp():
+    """The ICP wrapper (the reference's construction pattern) runs icp with
+    its settings: the same result as icp, and as the JAX class's."""
+    src, tgt, T_init, weight = scene(seed=3, B=2, N=128, M=1024)
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
+    solver = ICP(icp_type="pt2pl", differentiable=False, max_iterations=30)
+    got = solver.icp(*args, weight=torch.from_numpy(weight), trim_dist=4.0,
+                     loss_fn={"name": "huber", "metric": 0.5})
+    want = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(
+        icp_type="pt2pl", differentiable=False, max_iterations=30, trim_dist=4.0,
+        loss_name="huber", loss_metric=0.5, dim=2))
+    for name in ("T", "delta_norm", "iterations"):
+        assert torch.equal(got[name], want[name]), name
+    jgot = JICP(icp_type="pt2pl", differentiable=False, max_iterations=30).icp(
+        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(T_init), weight=jnp.asarray(weight),
+        trim_dist=4.0, loss_fn={"name": "huber", "metric": 0.5})
+    np.testing.assert_allclose(got["T"].numpy(), np.asarray(jgot["T"]), rtol=0, atol=1e-4)

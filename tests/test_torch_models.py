@@ -14,6 +14,7 @@ from mm_masking_tpu.models.unet import UNet as JUNet, upsample_bilinear_align_co
 from mm_masking_tpu_torch.config import Config, ModelConfig
 from mm_masking_tpu_torch.models import LearnICPWeightPolicy, UNet, params_from_flax
 from mm_masking_tpu_torch.models.unet import (
+    conv1x1,
     conv3x3_shapes,
     upsample_bilinear_align_corners,
     upsample_shapes,
@@ -62,6 +63,38 @@ def test_unet_matches_flax(enc, H, conv_impl, leaky, batch_norm):
     with torch.inference_mode():
         got = net(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unet_head_sums_and_takes_its_sigmoid_in_float32(dtype):
+    """The 1×1 head (ROADMAP §3 fault 4). In bfloat16 it multiplies the
+    bf16 activations by the weight and bias rounded to bf16, exactly, and
+    sums, adds and takes the sigmoid in float32: a float32 mask within
+    float32 rounding of a float64 head of the same bf16 values, with no
+    rounding of the logits to 8 bits. In float32 it is the matrix product,
+    bias and sigmoid it always was, bit for bit, gradients included."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 24, 24, generator=g).to(dtype).requires_grad_(True)
+    w = torch.randn(1, 8, 1, 1, generator=g).requires_grad_(True)
+    b = torch.randn(1, generator=g).requires_grad_(True)
+    y = torch.sigmoid(conv1x1(x, w, b))
+    assert y.dtype == torch.float32 and y.shape == (2, 1, 24, 24)
+    gx, gw, gb = torch.autograd.grad(y.sum(), (x, w, b))
+    if dtype == torch.float32:
+        want = torch.sigmoid((torch.matmul(w[:, :, 0, 0], x.reshape(2, 8, -1))
+                              + b[:, None]).reshape(2, 1, 24, 24))
+        assert torch.equal(y, want)
+        for got, ref in zip((gx, gw, gb), torch.autograd.grad(want.sum(), (x, w, b))):
+            assert torch.equal(got, ref)
+        return
+    xd, wd, bd = (t.detach().to(dtype).double() for t in (x, w, b))
+    want = torch.sigmoid(torch.einsum("oc,bchw->bohw", wd[:, :, 0, 0], xd)
+                         + bd[None, :, None, None])
+    np.testing.assert_allclose(y.detach().numpy(), want.numpy(), rtol=2e-7, atol=1e-7)
+    rounded = y.detach().to(torch.bfloat16).float()
+    assert not torch.equal(rounded, y.detach())  # not a bf16 result
+    assert torch.unique(y.detach()).numel() > 1000  # no 8-bit bins
+    assert gx.dtype == dtype and gw.dtype == torch.float32 and torch.isfinite(gw).all()
 
 
 def test_upsample_matches_jax():

@@ -110,9 +110,6 @@ def test_unported_training_modes_raise(tmp_path):
     bn = Trainer(tiny_config(tmp_path, batch_norm=True), "cpu")
     with pytest.raises(NotImplementedError, match="item 19"):
         bn.policy.apply(bn.init_state(0).params, *args, train=True)
-    imp = Trainer(tiny_config(tmp_path, icp_diff_mode="implicit"), "cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        imp.policy.apply(imp.init_state(0).params, *args, train=True)
 
 
 def test_training_forward_options(tmp_path):
@@ -331,6 +328,37 @@ def test_train_step_matches_jax(tmp_path):
         np.testing.assert_allclose(state.params[k].detach().numpy(), want.numpy(), rtol=0,
                                    atol=1e-6, err_msg=k)
     assert state.step == 1 and state.opt.count == 1
+
+
+def test_implicit_train_step_matches_jax(tmp_path):
+    """icp_diff_mode="implicit" (the solve to tolerance at max(5·3, 50)
+    iterations, its weight gradient by the implicit function theorem): one
+    step from the same parameters and batch, dropout off, against the JAX
+    Trainer's: loss and its components within 1e-5, grad_norm within 1e-3,
+    with no host read in the step. (The updated parameters are not compared:
+    Adam's first step is g / (|g| + 1e-8) · lr, so a gradient entry near 0
+    moves its parameter by up to lr on an ulp-level difference.)"""
+    model = dict(MODEL, icp_diff_mode="implicit")
+    jcfg = JConfig(model=JModelConfig(**model),
+                   train=JTrainConfig(batch_size_train=4, checkpoint_dir=str(tmp_path / "j")))
+    jtr = JTrainer(jcfg, mesh=make_mesh(1), logger=JMetricsLogger(str(tmp_path / "j")))
+    jstate = jtr.init_state()
+    batch = jbatch(0, 4, JSpec(**SPEC))
+    _, jl, jcomp, jgn = jtr._train_step(jstate, batch, mask_losses_active=True)
+
+    trainer = Trainer(tiny_config(tmp_path / "t", icp_diff_mode="implicit"), "cpu")
+    state = trainer.init_state()
+    with torch.no_grad():
+        for k, v in params_from_flax(jstate.variables["params"]).items():
+            state.params[k].copy_(v)
+    with no_host_reads():
+        state, loss, comp, gn = trainer.train_step(state, to_torch(batch))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    for f in comp._fields:
+        np.testing.assert_allclose(getattr(comp, f).item(), float(getattr(jcomp, f)),
+                                   rtol=1e-5, atol=1e-7, err_msg=f)
+    np.testing.assert_allclose(gn.item(), float(jgn), rtol=1e-3)
+    assert state.step == 1 and int(state.opt.count) == 1
 
 
 def test_fit_and_resume(tmp_path):
