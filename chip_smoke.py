@@ -168,7 +168,42 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            and grad_norm 1e-6 relative, parameters 1e-5 of max |p|), and
            the first against the plain path (loss and grad_norm 2e-2
            relative, bf16's rounding).
-12. probes the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
+12. polar  the policy with polar network input and output
+           (``network_input_type = network_output_type = "polar"``) at full
+           width: the UNet 8...256 on the 400 x 3360 scan (stages 400 x 3360
+           ... 25 x 210, pooled to 12 x 105), its mask warped to 640^2 before
+           the weight lookup, 4096 / 16384 points, pt2pt, ``loss.mask_pts =
+           0`` (ROADMAP §3). K2 and K3, f32 and bf16, against their plain
+           versions at every polar stage (forward, dx, dk; the kernels
+           phase's limits, B = 4), ``resize_bwd`` at every polar upsample
+           (both axes, B = 16), then one step's convs timed beside cuDNN's
+           with their bounds. ``Trainer.train_step`` on
+           ``synthetic_batch(seed=2, batch=16, polar)``: captured, 3
+           replays, each against an eager kernel-path step from its state
+           (loss and grad_norm 1e-6 relative, parameters 1e-5 of max |p|),
+           the first against the plain path (1e-4 relative; bf16 2e-2), two
+           chains of 3 graph steps bitwise equal, timed on the three paths
+           with peak memory and the warp's lookup scratch; the counters from 0
+           must show every conv, dx, dk, both axes of every upsample and two
+           lookup backwards a step (the weights' and the warp's); then the
+           same in bfloat16; then ``Trainer.eval_step`` at B = 32 (K4), graph
+           against eager (equal iterations, 1e-6 m / 1e-5 deg), timed.
+13. ct     the localize phase's tree of 24 raw 400 x 3360 scans, clouds by
+           ``extract_pc(..., return_times=True)`` (4096 points): the
+           continuous-time teach pass (8192 map points; the joint pose and
+           twist solve, K1 in every GN iteration) on the kernels against the
+           plain path (keyframes, poses 1e-4 m) and bitwise across two
+           passes, the rigid pass (K4) beside it, K1 / K4 launches and ms a
+           frame of both; ``pose_at`` at the frames' midpoints;
+           ``teach --interp-period-us 50000`` through the CLI.
+14. ransac the same clouds: the teach pass with ``use_mcransac`` (K1's
+           pre-association, K4's ICP) against the plain path and bitwise
+           across two passes, ms a frame; ``descriptor_bootstrap`` (ORB and
+           BASD) on 8 pairs of consecutive frames' 640^2 images and their
+           4096 keypoints, its pose logged against the rigid teach pass's
+           relative pose, the card's matches and pose against the CPU's
+           (99% of the matches equal, the pose within 1e-3), ms a call.
+15. probes the conv-probe path (``mm_masking_tpu_torch.benchmarks.probe_conv``):
            each probe kernel P1-P4 and each of P2's five variants against
            its plain version at the probes' check shapes (f32) and at
            B = 16, 640^2, 16 -> 16 (f32 and bf16; asm-only bit for bit),
@@ -231,10 +266,14 @@ from mm_masking_tpu_torch.evaluation import (
     summarize,
 )
 from mm_masking_tpu_torch.evaluation import gt_tools
-from mm_masking_tpu_torch.geom import se3_exp, transform_points
+from mm_masking_tpu_torch.geom import se3_exp, se3_inv, transform_points
 from mm_masking_tpu_torch.localization import __main__ as localization_cli
 from mm_masking_tpu_torch.localization import pipeline as localization_pipeline
-from mm_masking_tpu_torch.localization.odometry import OdometryConfig, TeachPass
+from mm_masking_tpu_torch.localization.odometry import (
+    OdometryConfig,
+    TeachPass,
+    descriptor_bootstrap,
+)
 from mm_masking_tpu_torch.localization.pipeline import (
     LocalizationConfig,
     localize_frame,
@@ -242,7 +281,12 @@ from mm_masking_tpu_torch.localization.pipeline import (
 )
 from mm_masking_tpu_torch.models import LearnICPWeightPolicy
 from mm_masking_tpu_torch.models.unet import conv3x3_shapes, upsample_shapes
-from mm_masking_tpu_torch.ops import POLAR_SHAPE, extract_weights, kernels
+from mm_masking_tpu_torch.ops import (
+    POLAR_SHAPE,
+    extract_weights,
+    kernels,
+    radar_polar_to_cartesian,
+)
 from mm_masking_tpu_torch.ops.kernels import nn_assoc, resample
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
 from mm_masking_tpu_torch.ops.kernels.conv2d import (
@@ -309,23 +353,26 @@ KERNELS = {
 # steps (stripe and dense), the train steps, the bfloat16 train steps, the
 # implicit-gradient train steps (pt2pt and pt2pl in float32, bfloat16), the
 # training CLI on a written tree (float32), the localize phase (float32;
-# its bfloat16 mask run apart), the product recipe (bfloat16 pt2pl) and the
-# probe timing (whose bfloat16 K2 yardstick is the bfloat16 K2 row's).
+# its bfloat16 mask run apart), the product recipe (bfloat16 pt2pl), the
+# polar train steps (float32, bfloat16) and eval step, the continuous-time
+# and MC-RANSAC teach passes and the probe timing (whose bfloat16 K2
+# yardstick is the bfloat16 K2 row's).
 NN_PHASES = ("slice", "dense", "slice_bf16", "refresh", "refresh_dense", "train", "train_bf16",
              "implicit", "implicit_pt2pl", "implicit_bf16", "data", "localize", "localize_bf16",
-             "e2e")
+             "e2e", "polar", "polar_bf16", "polar_eval", "ct", "ransac")
 ROW_PHASES = {
-    "conv3x3": ("slice", "dense", "train", "implicit", "implicit_pt2pl", "data", "localize"),
-    "conv3x3_dk": ("train", "implicit", "implicit_pt2pl", "data"),
+    "conv3x3": ("slice", "dense", "train", "implicit", "implicit_pt2pl", "data", "localize",
+                "polar", "polar_eval"),
+    "conv3x3_dk": ("train", "implicit", "implicit_pt2pl", "data", "polar"),
     "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "implicit_bf16",
-                     "probes", "localize_bf16", "e2e"),
-    "conv3x3_dk_bf16": ("train_bf16", "implicit_bf16", "e2e"),
+                     "probes", "localize_bf16", "e2e", "polar_bf16"),
+    "conv3x3_dk_bf16": ("train_bf16", "implicit_bf16", "e2e", "polar_bf16"),
     "nn_stripe": NN_PHASES,
     "nn_argmin": NN_PHASES,
     "resize_bwd": ("train", "train_bf16", "implicit", "implicit_pt2pl", "implicit_bf16", "data",
-                   "e2e"),
+                   "e2e", "polar", "polar_bf16"),
     "bilinear_points_bwd": ("train", "train_bf16", "implicit", "implicit_pt2pl",
-                            "implicit_bf16", "data", "e2e"),
+                            "implicit_bf16", "data", "e2e", "polar", "polar_bf16"),
 }
 # Each probe's row is timed at the canonical low-channel stage (B = 16, 640^2,
 # 16 -> 16, bf16) with the probe's own default tile.
@@ -352,6 +399,17 @@ def seq_bound(works) -> tuple[float, str]:
     return sum(by.values()), max(by, key=by.get)
 
 
+def stage(shape: tuple[int, ...]) -> tuple[int, int, int, int]:
+    """(Ci, Co, H, W) of a conv stage listed by ``conv3x3_shapes``: (Ci, Co,
+    H) for a square image, (Ci, Co, H, W) for the polar scan."""
+    return (*shape, shape[2])[:4]
+
+
+def unet_size(model) -> int | tuple[int, int]:
+    """The UNet's input size: the cartesian width, or the polar (A, R)."""
+    return model.polar_shape if model.network_input_type == "polar" else model.cart_pixel_width
+
+
 def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
     """(operations, bytes, type) of one step's convs at ``batch``: the
     forward (x, weight and bias in, y out), dx (dy and weight in, dx out;
@@ -359,9 +417,10 @@ def conv_works(shapes, batch, dtype=torch.float32) -> dict[str, list]:
     ``dtype``'s bytes, the weights (and dk) float32's."""
     works = {"fwd": [], "dx": [], "dk": []}
     elem = torch.finfo(dtype).bits // 8
-    for i, (ci, co, h) in enumerate(shapes):
-        ops = 18 * ci * co * batch * h * h
-        io = elem * batch * h * h * (ci + co) + 4 * 9 * ci * co
+    for i, shape in enumerate(shapes):
+        ci, co, h, w = stage(shape)
+        ops = 18 * ci * co * batch * h * w
+        io = elem * batch * h * w * (ci + co) + 4 * 9 * ci * co
         works["fwd"].append((ops, io + 4 * co, dtype))
         if i > 0:
             works["dx"].append((ops, io, dtype))
@@ -540,7 +599,7 @@ def check_conv_backward(device, shapes) -> dict[str, float]:
     return worst
 
 
-def time_convs(device, shapes, dtype) -> dict[str, float]:
+def time_convs(device, shapes, dtype, label: str = "kernels") -> dict[str, float]:
     """One train step's forward, dx and dk at B = 16 in ``dtype``, stage by
     stage, as device time replayed from CUDA graphs (``graph_ms``, as the
     graph train step runs them): the kernels beside their plain versions
@@ -555,11 +614,12 @@ def time_convs(device, shapes, dtype) -> dict[str, float]:
     keys = [f"{job}{path}" for job in ("fwd", "dx", "dk")
             for path in ("", "_plain", "_lib", "_host")]
     ms = dict.fromkeys(keys, 0.0)
-    for ci, co, h in sorted(set(shapes)):
-        n = shapes.count((ci, co, h))
-        n_dx = n - int((ci, co, h) == first)
-        x = torch.randn(TRAIN_BATCH, ci, h, h, generator=gd, device=device).to(dtype)
-        dy = torch.randn(TRAIN_BATCH, co, h, h, generator=gd, device=device).to(dtype)
+    for shape in sorted(set(shapes)):
+        ci, co, h, wd = stage(shape)
+        n = shapes.count(shape)
+        n_dx = n - int(shape == first)
+        x = torch.randn(TRAIN_BATCH, ci, h, wd, generator=gd, device=device).to(dtype)
+        dy = torch.randn(TRAIN_BATCH, co, h, wd, generator=gd, device=device).to(dtype)
         w = (torch.randn(co, ci, 3, 3, generator=gd, device=device) * math.sqrt(
             2.0 / (9 * (ci + co)))).to(dtype)
         b = torch.zeros(co, device=device, dtype=dtype)
@@ -577,11 +637,11 @@ def time_convs(device, shapes, dtype) -> dict[str, float]:
             row[job] = (k, graph_ms(plain), lib_ms, cuda_ms(kernel))
             for path, t in zip(("", "_plain", "_lib", "_host"), row[job]):
                 ms[job + path] += (n_dx if job == "dx" else n) * t
-        log("kernels", f"{name} B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}^2 x{n} (ms "
+        log(label, f"{name} B={TRAIN_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}x{wd} x{n} (ms "
             f"replayed, kernel / plain / cuDNN {name}; host-launched kernel): " + ", ".join(
                 f"{job} {k:.3f} / {p:.3f} / {lb:.3f}; {hk:.3f}"
                 for job, (k, p, lb, hk) in row.items()))
-    log("kernels", f"one {name} train step's convs at B={TRAIN_BATCH} (ms replayed, kernel / "
+    log(label, f"one {name} train step's convs at B={TRAIN_BATCH} (ms replayed, kernel / "
         f"plain / cuDNN {name}; host-launched kernel): " + ", ".join(
             f"{job} {ms[job]:.2f} / {ms[job + '_plain']:.2f} / {ms[job + '_lib']:.2f}; "
             f"{ms[job + '_host']:.2f}" for job in ("fwd", "dx", "dk")))
@@ -1036,14 +1096,15 @@ def run_slice(trainer: Trainer, params: dict, batch, label: str = "slice") -> tu
     log(label, f"launches {counts}")
     log(label, f"err (norm, rot, trans) {err.tolist()} mean_num_non0 "
         f"{float(stats.mean_num_non0)} mean_w {float(stats.mean_w):.4f}")
-    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
+    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, unet_size(cfg.model)))
     if counts["conv3x3"] != n_conv:
         raise AssertionError(f"expected {n_conv} conv3x3 launches, got {counts['conv3x3']}")
     if counts["nn_stripe"] + counts["nn_argmin"] < 1:
         raise AssertionError("the ICP launched no NN kernel")
-    width = cfg.model.cart_pixel_width
+    size = unet_size(cfg.model)
     loc, mp, T0 = batch["loc_data"], batch["map_data"], batch["transforms"]["T_ml_init"]
-    if not torch.isfinite(err).all() or mask.shape != (len(T0), width, width):
+    if not torch.isfinite(err).all() or mask.shape != (len(T0), *(
+            size if isinstance(size, tuple) else (size, size))):
         raise AssertionError(f"bad outputs: err {err}, mask {tuple(mask.shape)}")
     if not torch.isfinite(mask).all() or float(mask.max()) != 1.0:
         raise AssertionError("mask is not finite or not normalised to a max of 1")
@@ -1135,7 +1196,7 @@ def time_eval(trainer: Trainer, params: dict, batch,
     turn (the graph path's graphs are captured already)."""
     times = three_paths(lambda path: host_ms(lambda: trainer.eval_step(params, batch)))
     log(label, f"eval_step B={len(batch['transforms']['T_ml_init'])} "
-        f"{trainer.cfg.model.cart_pixel_width}^2 N={batch['loc_data']['raw_pc'].shape[1]} "
+        f"{unet_size(trainer.cfg.model)} N={batch['loc_data']['raw_pc'].shape[1]} "
         f"M={batch['map_data']['pc'].shape[1]} {trainer.cfg.model.dtype}, host clock: "
         + "; ".join(
             f"{path} {spread(t)}" for path, t in times.items()))
@@ -1195,11 +1256,11 @@ def time_train(trainer: Trainer, batch, label: str) -> dict[str, tuple[list[floa
         trainer.capture_train_step(state, batch)
         times = host_ms(lambda: trainer.train_step(state, batch))
         peaks[path] = max(peaks.get(path, 0.0), torch.cuda.max_memory_allocated() / 2**20)
+        state.graphs.clear()  # the graph holds its state: free it now, not at a gc pass
         return times
 
     times = three_paths(turn)
-    width = trainer.cfg.model.cart_pixel_width
-    log(label, f"train_step B={TRAIN_BATCH} {width}^2 N={N_SCAN} M={N_MAP} "
+    log(label, f"train_step B={TRAIN_BATCH} {unet_size(trainer.cfg.model)} N={N_SCAN} M={N_MAP} "
         f"{trainer.cfg.model.dtype}, host clock: " + "; ".join(
             f"{path} {spread(t)}, peak {peaks[path]:.0f} MiB" for path, t in times.items()))
     return {path: (t, peaks[path]) for path, t in times.items()}
@@ -1235,10 +1296,12 @@ def captured_steps(trainer: Trainer, batch, label: str):
     counts = kernels.launch_counts()
     log(label, f"launches over {TRAIN_STEPS} steps {counts}")
     cfg = trainer.cfg
-    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
-    n_up = len(upsample_shapes(cfg.model.enc_channels, cfg.model.cart_pixel_width))
+    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, unet_size(cfg.model)))
+    n_up = len(upsample_shapes(cfg.model.enc_channels, unet_size(cfg.model)))
+    # The lookup backward: the weights', and a polar mask's warp to cartesian.
+    n_lookup = 1 + (cfg.model.network_output_type == "polar")
     want = {"conv3x3": n_conv, "conv3x3_dx": n_conv - 1, "conv3x3_dk": n_conv,
-            "resize_bwd": 2 * n_up, "bilinear_points_bwd": 1}
+            "resize_bwd": 2 * n_up, "bilinear_points_bwd": n_lookup}
     for name, n in want.items():
         if counts[name] != TRAIN_STEPS * n:
             raise AssertionError(f"expected {TRAIN_STEPS * n} {name} launches, got "
@@ -2095,6 +2158,334 @@ def run_localize_cli(device, cfg: Config, smi: str) -> dict:
     return counts
 
 
+POLAR_STEPS = 3  # replays of the polar train step
+
+
+def polar_config(cfg: Config, dtype: str = "float32") -> Config:
+    """The default Config() with polar network input and output, the mask
+    loss's map-points term off (a polar mask has no cartesian BEV to match,
+    ROADMAP §3), in ``dtype``."""
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, network_input_type="polar",
+                                       network_output_type="polar", dtype=dtype),
+        loss=dataclasses.replace(cfg.loss, mask_pts=0.0))
+
+
+def check_polar_convs(device, shapes) -> dict[str, float]:
+    """K2 (forward, dx) and K3 (dk) at every polar stage shape (Ci, Co, H, W),
+    f32 and bf16, B = 4, against their plain versions with the kernels
+    phase's limits (forward and dx 1e-4 of max |plain|, 2e-2 in bf16; dk
+    within 1e-5 of a float64 sum and bitwise across two runs, kernel vs
+    plain logged), the bf16 forward and dx also elementwise against float64
+    convs. Returns the largest absolute differences from the plain versions."""
+    g = torch.Generator().manual_seed(5)
+    worst = dict.fromkeys(("fwd", "fwd_bf16", "dx", "dx_bf16", "dk", "dk_bf16"), 0.0)
+    for shape in sorted(set(shapes)):
+        ci, co, h, wd = stage(shape)
+        x = torch.randn(CHECK_BATCH, ci, h, wd, generator=g)
+        dy = torch.randn(CHECK_BATCH, co, h, wd, generator=g)
+        w = torch.randn(co, ci, 3, 3, generator=g) * math.sqrt(2.0 / (9 * (ci + co)))
+        b = torch.randn(co, generator=g) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            xs, dys, ws, bs = (t.to(device, dtype) for t in (x, dy, w, b))
+            label = f"B={CHECK_BATCH} Ci={ci:3d} Co={co:3d} {h:3d}x{wd:4d} {str(dtype)[6:]:8s}"
+            got = conv3x3(xs, ws, bs, True).float()
+            want = conv3x3_plain(xs, ws, bs, True).float()
+            rel = rel_err(got, want)
+            log("polar", f"conv3x3 {label} forward max|d|/max|y|={rel:.3e}")
+            if rel > (1e-4 if dtype == torch.float32 else 2e-2):
+                raise AssertionError(f"polar conv3x3 forward {label}: {rel}")
+            dx_abs, dk_abs = check_backward(xs, dys, ws, f"polar {label}", dk_vs_plain=False)
+            sfx = "_bf16" if dtype == torch.bfloat16 else ""
+            worst["fwd" + sfx] = max(worst["fwd" + sfx], (got - want).abs().max().item())
+            worst["dx" + sfx] = max(worst["dx" + sfx], dx_abs)
+            worst["dk" + sfx] = max(worst["dk" + sfx], dk_abs)
+            if dtype == torch.bfloat16:
+                check_bf16_float64(xs, dys, ws, f"polar {label}")
+    return worst
+
+
+def check_polar_resize(device, enc) -> float:
+    """``resize_bwd`` at every polar upsample (12x105 -> 25x210 ... 200x1680
+    -> 400x3360), each axis as the backward meets it (W, then H), B = 16, f32
+    and bf16: against its plain version (1e-6 of max |g| in f32, 2e-2 in
+    bf16) and bitwise across two runs. Returns the largest f32 relative
+    difference."""
+    gd = torch.Generator(device=device).manual_seed(6)
+    worst = 0.0
+    for c, h, w, H, W in upsample_shapes(enc, POLAR_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            for axis, n_in, n_out, size in ((3, w, W, (H, W)), (2, h, H, (H, w))):
+                dy = torch.randn(TRAIN_BATCH, c, *size, generator=gd, device=device).to(dtype)
+                i0, w0, w1 = resample.resize_tables(n_in, n_out, dtype, device)
+                got = resample.resize_bwd(dy, i0, w0, w1, n_in, axis)
+                if not torch.equal(got, resample.resize_bwd(dy, i0, w0, w1, n_in, axis)):
+                    raise AssertionError(f"resize_bwd {n_out}->{n_in} axis {axis}: two runs "
+                                         "differ")
+                rel = rel_err(got, resample.resize_bwd_plain(dy, i0, w0, w1, n_in, axis))
+                log("polar", f"resize_bwd C={c} {tuple(dy.shape[2:])} axis {axis} {n_out}->"
+                    f"{n_in} {str(dtype)[6:]}: rel {rel:.3e}, bitwise stable")
+                if rel > (1e-6 if dtype == torch.float32 else 2e-2):
+                    raise AssertionError(f"resize_bwd at a polar stage: {rel}")
+                if dtype == torch.float32:
+                    worst = max(worst, rel)
+    return worst
+
+
+def fresh_chain(trainer: Trainer, batch) -> list:
+    """``train_chain`` from a fresh state (seed 0), its graph freed after."""
+    state = trainer.init_state(seed=0)
+    try:
+        return train_chain(trainer, batch, state)
+    finally:
+        state.graphs.clear()
+
+
+def run_polar(device, cfg: Config) -> tuple[dict, dict]:
+    """Phase 12: the policy with polar network input and output at full
+    width (UNet 8...256 on the 400 x 3360 scan, the mask warped to 640^2
+    before the weight lookup; 4096 / 16384 points, pt2pt, mask_pts = 0).
+    K2 and K3 at every polar stage, both types, and resize_bwd at every
+    polar upsample against their plain versions; the convs of one step timed
+    beside cuDNN's; ``Trainer.train_step`` at B = 16 captured, 3 replays each
+    against an eager step from its state, the first against the plain path,
+    two chains bitwise equal, timed with peak memory; then bf16; then
+    ``Trainer.eval_step`` at B = 32, graph against eager. Returns ({label:
+    counters}, measured numbers)."""
+    t0 = time.perf_counter()
+    pcfg = polar_config(cfg)
+    shapes = conv3x3_shapes(cfg.model.enc_channels, POLAR_SHAPE)
+    errs = check_polar_convs(device, shapes)
+    resize_rel = check_polar_resize(device, cfg.model.enc_channels)
+    conv_ms = {str(dt)[6:]: time_convs(device, shapes, dt, "polar")
+               for dt in (torch.float32, torch.bfloat16)}
+    bounds = {}
+    for dt in (torch.float32, torch.bfloat16):
+        works = conv_works(shapes, TRAIN_BATCH, dt)
+        bounds[str(dt)[6:]] = {"fwd+dx": seq_bound(works["fwd"] + works["dx"]),
+                               "dk": seq_bound(works["dk"])}
+    log("polar", f"bounds of one polar step's convs at B={TRAIN_BATCH} (ms, by): {bounds}")
+    spec = SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP, network_input_type="polar")
+    batch = synthetic_batch(2, TRAIN_BATCH, spec, device=device)
+    if batch["loc_data"]["fft_data"].shape != (TRAIN_BATCH, *POLAR_SHAPE):
+        raise AssertionError(f"polar batch: {tuple(batch['loc_data']['fft_data'].shape)}")
+    n_chunks, bins = resample.lookup_layout(TRAIN_BATCH, cfg.model.cart_pixel_width ** 2,
+                                            POLAR_SHAPE[0] + 2, POLAR_SHAPE[1])
+    scratch = (TRAIN_BATCH * n_chunks * 4 * resample.CHUNK * 4 * 4
+               + TRAIN_BATCH * (bins + 1) * n_chunks * 4)
+    log("polar", f"the warp's lookup backward at B={TRAIN_BATCH}: "
+        f"{cfg.model.cart_pixel_width ** 2} points an image on {POLAR_SHAPE[0] + 2} x "
+        f"{POLAR_SHAPE[1]} (crossover rows included): {n_chunks} chunks, {bins} bins, scratch "
+        f"{scratch / 2**20:.1f} MiB a call")
+    out, measured = {}, {"errs": errs, "resize_rel": resize_rel, "conv_ms": conv_ms,
+                         "bounds": bounds, "scratch_mib": scratch / 2**20}
+    for label, dtype, lim in (("polar", "float32", 1e-4), ("polar_bf16", "bfloat16", 2e-2)):
+        trainer = Trainer(polar_config(cfg, dtype), device)
+        state, _, steps, snaps, counts = captured_steps(trainer, batch, label)
+        state.graphs.clear()  # one polar graph at a time: each holds ~1/3 of the card
+        del state
+        check_replays(trainer, batch, steps, snaps, label)
+        with kernels.plain_versions():
+            _, loss_p, _, gnorm_p = trainer.train_step(trainer.init_state(seed=0), batch)
+        loss, gnorm = steps[0][1].item(), steps[0][3].item()
+        d_loss = abs(loss - loss_p.item()) / abs(loss_p.item())
+        d_gnorm = abs(gnorm - gnorm_p.item()) / gnorm_p.item()
+        log(label, f"step 1 kernel vs plain: loss {loss:.7g} vs {loss_p.item():.7g} (rel "
+            f"{d_loss:.3e}), grad_norm {gnorm:.7g} vs {gnorm_p.item():.7g} (rel {d_gnorm:.3e})")
+        if d_loss > lim or d_gnorm > lim:
+            raise AssertionError(f"{label}: the polar train step differs from the plain path "
+                                 f"beyond {lim} relative")
+        a, b = (fresh_chain(trainer, batch) for _ in range(2))
+        diff = bitwise(a, b)
+        log(label, f"two chains of {TRAIN_STEPS} graph steps from one seed bitwise equal "
+            f"{not diff}" + (f" (differ at {diff})" if diff else ""))
+        if diff:
+            raise AssertionError(f"{label}: two train chains differ")
+        measured[label] = {"times": time_train(trainer, batch, label), "loss_rel": d_loss,
+                           "gnorm_rel": d_gnorm}
+        out[label] = counts
+        del trainer, steps, snaps, a, b
+    del batch
+    trainer = Trainer(pcfg, device)
+    params = trainer.init_state(seed=0).params
+    eval_batch = synthetic_batch(1, BATCH, spec, device=device)
+    out["polar_eval"], solve = run_slice(trainer, params, eval_batch, "polar_eval")
+    measured["eval_times"] = time_eval(trainer, params, eval_batch, "polar_eval")
+    measured["eval_solve"] = solve
+    log("polar", f"phase: {time.perf_counter() - t0:.1f} s")
+    return out, measured
+
+
+def clouds_with_times(frames: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CLI's detector and peak extraction over stacked raw scans, with
+    each point's azimuth time (``extract_pc(..., return_times=True)``):
+    ((F, 4096, 3), (F, 4096)) on the device."""
+    from mm_masking_tpu_torch.ops import extract_pc
+    from mm_masking_tpu_torch.ops.detectors import detect
+
+    cfg = LocalizationConfig()
+    clouds, times = [], []
+    with torch.no_grad():
+        for s in range(0, frames["fft"].shape[0], 8):
+            fft, az, azt = (torch.as_tensor(frames[k][s:s + 8], device=device)
+                            for k in ("fft", "azimuths", "az_times"))
+            mask = detect(cfg.detector, fft, cfg.radar_resolution, **dict(cfg.detector_kwargs))
+            pc, t = extract_pc(mask, cfg.radar_resolution, az, azt, max_points=N_SCAN,
+                               diff=False, return_times=True)
+            clouds.append(pc)
+            times.append(t)
+    return torch.cat(clouds), torch.cat(times)
+
+
+def odometry_pass(clouds, stamps, times=None, **cfg) -> TeachPass:
+    teach = TeachPass(OdometryConfig(max_map_pts=CLI_MAP_PTS, **cfg))
+    for i, c in enumerate(clouds):
+        teach.process(c, stamp_us=stamps[i], times=None if times is None else times[i])
+    return teach
+
+
+def timed_pass(label: str, *args, **cfg) -> tuple[TeachPass, dict, float]:
+    """A teach pass with the counters from 0: (pass, counters, ms a frame)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    teach = odometry_pass(*args, **cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(args[0])
+    return teach, kernels.launch_counts(), ms
+
+
+def hold_teach(label: str, one: TeachPass, two: TeachPass, plain: TeachPass) -> float:
+    """Two passes on the kernels bitwise equal; the kernels against the plain
+    path: equal keyframes, poses within 1e-4 m. Returns max |dt|."""
+    T1, T2, Tp = (torch.stack(t._poses) for t in (one, two, plain))
+    same = (torch.equal(one.map_pts, two.map_pts) and torch.equal(one.map_w, two.map_w)
+            and torch.equal(T1, T2))
+    dt = (T1[:, :3, 3] - Tp[:, :3, 3]).norm(dim=-1).max().item()
+    log(label, f"two passes bitwise equal {same}; keyframes {one.n_keyframes} (plain path "
+        f"{plain.n_keyframes}); max |dt| vs plain {dt:.3e} m; poses finite "
+        f"{bool(torch.isfinite(T1).all())}")
+    if not same:
+        raise AssertionError(f"{label}: two passes on the card differ")
+    if one.n_keyframes != plain.n_keyframes or dt > 1e-4 or not torch.isfinite(T1).all():
+        raise AssertionError(f"{label}: the pass on the kernels differs from the plain path")
+    return dt
+
+
+def run_ct_ransac(device, cfg: Config, smi: str) -> tuple[dict, dict]:
+    """Phases 13 and 14 on the localize phase's raw-scan tree (24 frames of
+    400 x 3360, the clouds by extract_pc with their per-point times, 4096
+    points, 8192 map points). ct: the continuous-time teach pass (the joint
+    pose and twist solve, K1 every GN iteration) on the kernels against the
+    plain path and bitwise across two passes, beside the rigid pass (K4);
+    ``pose_at`` between frames; ``teach --interp-period-us 50000``. ransac:
+    the teach pass with MC-RANSAC (K1's pre-association, then K4), kernels
+    against plain; ``descriptor_bootstrap`` (ORB and BASD) on consecutive
+    frames' 640^2 images and keypoints, its pose against the teach pass's
+    relative pose, the card against the CPU. Returns ({"ct": counters,
+    "ransac": counters}, measured numbers)."""
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        rows = write_loc_tree(root)
+        teach_dir = os.path.join(root, "vtr_data", "loc-teach", "radar")
+        stamps = [st for st, *_ in rows["loc-teach"]]
+        paths = [os.path.join(teach_dir, f"{st}.npy") for st in stamps]
+        frames = localization_cli._load_radar_frames(paths)
+        clouds, times = clouds_with_times(frames, device)
+        log("ct", f"{len(paths)} raw scans {POLAR_SHAPE} → clouds {tuple(clouds.shape)} with "
+            f"times {tuple(times.shape)} in {time.perf_counter() - t0:.1f} s")
+
+        odometry_pass(clouds, stamps, times, continuous_time=True)  # warm-up: chunk graphs
+        one, ct_counts, ct_ms = timed_pass("ct", clouds, stamps, times, continuous_time=True)
+        two = odometry_pass(clouds, stamps, times, continuous_time=True)
+        with kernels.plain_versions():
+            plain = odometry_pass(clouds, stamps, times, continuous_time=True)
+        log("ct", f"continuous-time teach pass: launches {ct_counts}; K1 "
+            f"{ct_counts['nn_argmin'] / (len(paths) - 1):.1f} a frame; {ct_ms:.2f} ms a frame")
+        ct_dt = hold_teach("ct", one, two, plain)
+        if ct_counts["nn_argmin"] < len(paths) - 1:
+            raise AssertionError(f"ct: K1 launched {ct_counts['nn_argmin']} times for "
+                                 f"{len(paths) - 1} registered frames")
+        odometry_pass(clouds, stamps)  # warm-up
+        rigid, rigid_counts, rigid_ms = timed_pass("ct", clouds, stamps)
+        T_ct, T_rigid = torch.stack(one._poses), torch.stack(rigid._poses)
+        log("ct", f"rigid teach pass: launches {rigid_counts}; K4 "
+            f"{rigid_counts['nn_stripe'] / (len(paths) - 1):.1f} a frame; {rigid_ms:.2f} ms a "
+            f"frame; continuous-time vs rigid final pose {T_ct[-1, :2, 3].tolist()} vs "
+            f"{T_rigid[-1, :2, 3].tolist()}, GT {rows['loc-teach'][-1][1:3]} (m) on {smi}")
+        mids = [(a + b) // 2 for a, b in zip(stamps, stamps[1:])]
+        q = torch.stack([one.pose_at(m)[0] for m in mids])
+        gap = (q[:, :2, 3] - 0.5 * (T_ct[:-1, :2, 3] + T_ct[1:, :2, 3])).norm(dim=-1)
+        step = (T_ct[1:, :2, 3] - T_ct[:-1, :2, 3]).norm(dim=-1).max().item()
+        log("ct", f"pose_at at the {len(mids)} midpoints: max distance from the knots' "
+            f"midpoint {gap.max().item():.3e} m (steps up to {step:.3f} m)")
+        if not torch.isfinite(q).all() or gap.max().item() > 0.1:
+            raise AssertionError("ct: pose_at between frames is not finite or leaves the path")
+        traj = os.path.join(root, "odo.txt")
+        argv = ["teach", "--scans", teach_dir, "--out-map", os.path.join(root, "map.npz"),
+                "--out-traj", traj, "--max-map-pts", str(CLI_MAP_PTS),
+                "--interp-period-us", "50000", "--device", str(device)]
+        if localization_cli.main(argv) != 0:
+            raise AssertionError("teach --interp-period-us failed")
+        poses, q_us = gt_tools.read_traj_file(os.path.join(root, "odo_interp.txt"))
+        want_n = (stamps[-1] - stamps[0]) // 50000 + 1
+        log("ct", f"teach --interp-period-us 50000: {len(q_us)} poses from {q_us[0]} to "
+            f"{q_us[-1]} us")
+        if len(q_us) != want_n or not np.isfinite(np.stack(poses)).all():
+            raise AssertionError(f"teach --interp-period-us: {len(q_us)} rows, {want_n} wanted")
+
+        rcfg = dict(use_mcransac=True)
+        odometry_pass(clouds, stamps, **rcfg)  # warm-up
+        r_one, r_counts, r_ms = timed_pass("ransac", clouds, stamps, **rcfg)
+        r_two = odometry_pass(clouds, stamps, **rcfg)
+        with kernels.plain_versions():
+            r_plain = odometry_pass(clouds, stamps, **rcfg)
+        log("ransac", f"MC-RANSAC teach pass: launches {r_counts}; K1 "
+            f"{r_counts['nn_argmin'] / (len(paths) - 1):.1f}, K4 "
+            f"{r_counts['nn_stripe'] / (len(paths) - 1):.1f} a frame; {r_ms:.2f} ms a frame")
+        r_dt = hold_teach("ransac", r_one, r_two, r_plain)
+        if r_counts["nn_argmin"] < len(paths) - 1 or r_counts["nn_stripe"] < 1:
+            raise AssertionError(f"ransac: K1 and K4 did not both launch: {r_counts}")
+
+        k = 8  # pairs (frame i, frame i + 1)
+        m = cfg.model
+        az = torch.as_tensor(frames["azimuths"], device=device)
+        imgs = radar_polar_to_cartesian(torch.as_tensor(frames["fft"], device=device), az,
+                                        m.res, m.cart_resolution, m.cart_pixel_width)
+        T_rel = se3_inv(T_rigid[1:k + 1]) @ T_rigid[:k]  # maps frame i's points into i + 1's
+        boot = {}
+        for kind in ("orb", "basd"):
+            args = (imgs[:k], clouds[:k], imgs[1:k + 1], clouds[1:k + 1], m.cart_resolution)
+            descriptor_bootstrap(*args, descriptor=kind)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = descriptor_bootstrap(*args, descriptor=kind)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+            cpu = descriptor_bootstrap(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                                       descriptor=kind)
+            d_T = (res["T"].cpu() - cpu["T"]).abs().max().item()
+            ok = res["match_ok"].cpu() & cpu["match_ok"]
+            agree = ((res["matches"].cpu() == cpu["matches"]) & ok).sum() / max(
+                1, int((res["match_ok"].cpu() | cpu["match_ok"]).sum()))
+            err = (res["T"] @ se3_inv(T_rel))[:, :2, 3].norm(dim=-1)
+            log("ransac", f"descriptor_bootstrap {kind}, {k} pairs of 640^2 images with {N_SCAN} "
+                f"keypoints: {call_ms:.1f} ms a call; matches {res['match_ok'].sum(1).tolist()}, "
+                f"inlier_frac {[round(v, 3) for v in res['inlier_frac'].tolist()]}; |dt| vs the "
+                f"teach pass's relative pose {[round(v, 3) for v in err.tolist()]} m; card vs "
+                f"CPU: {float(agree):.4f} of the matches agree, max|dT| {d_T:.2e}")
+            # The card's sin, cos, atan2 and sums may part from the CPU's by
+            # an ulp, which can flip a bit that compares two near-equal
+            # samples: the matches may differ in a few places, the pose not.
+            if not torch.isfinite(res["T"]).all() or agree < 0.99 or d_T > 1e-3:
+                raise AssertionError(f"descriptor_bootstrap {kind}: not finite, or the card "
+                                     "differs from the CPU")
+            boot[kind] = {"ms": call_ms, "err_m": err.tolist()}
+    return {"ct": ct_counts, "ransac": r_counts}, {
+        "ct_ms": ct_ms, "rigid_ms": rigid_ms, "ransac_ms": r_ms, "ct_dt": ct_dt,
+        "ransac_dt": r_dt, "bootstrap": boot}
+
+
 E2E_EPOCHS = 2  # the e2e phase's epochs of the recipe at full width, one training sequence
 
 
@@ -2296,6 +2687,10 @@ def main() -> int:
     t0 = time.perf_counter()
     e2e_counts = run_e2e(device, smi)
     log("e2e", f"phase: {time.perf_counter() - t0:.1f} s")
+    polar_counts, polar = run_polar(device, cfg)
+    t0 = time.perf_counter()
+    ct_counts, ct = run_ct_ransac(device, cfg, smi)
+    log("ct", f"phases ct and ransac: {time.perf_counter() - t0:.1f} s")
     probe_counts, probes = run_probes(device)
 
     # launches: the sum over the counted main-path runs of ROW_PHASES.
@@ -2337,8 +2732,8 @@ def main() -> int:
     phases = {"slice": counts, "dense": dense_counts, "slice_bf16": bf16_slice_counts,
               **refresh_counts, "train": train_counts, "train_bf16": bf16_counts,
               **implicit_counts, "data": data_counts, "localize": loc_counts,
-              "localize_bf16": loc_bf16_counts,
-              "e2e": e2e_counts, "probes": probe_counts}
+              "localize_bf16": loc_bf16_counts, "e2e": e2e_counts, **polar_counts,
+              **ct_counts, "probes": probe_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2358,7 +2753,13 @@ def main() -> int:
             f"{med(t):.1f}" for t in bf16_eval_times.values()) + f" ({bf16_solve['stop_tests']} "
         f"stop-test reads, {bf16_solve['iterations']} iterations); train_step " + " / ".join(
             f"{med(t):.1f}" for t, _ in train["times"].values()) + "; bf16 train_step " +
-        " / ".join(f"{med(t):.1f}" for t, _ in train_bf16["times"].values()) + f" on {smi}")
+        " / ".join(f"{med(t):.1f}" for t, _ in train_bf16["times"].values()) + "; polar "
+        "train_step f32 " + " / ".join(f"{med(t):.1f}" for t, _ in polar["polar"]["times"].values())
+        + ", bf16 " + " / ".join(f"{med(t):.1f}" for t, _ in
+                                 polar["polar_bf16"]["times"].values())
+        + ", polar eval_step " + " / ".join(f"{med(t):.1f}" for t in polar["eval_times"].values())
+        + f"; teach ms a frame: rigid {ct['rigid_ms']:.2f}, continuous-time {ct['ct_ms']:.2f}, "
+        f"MC-RANSAC {ct['ransac_ms']:.2f} on {smi}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ Ported so far: the policy's inference and train steps (batch-global
 normalisation → UNet mask → per-point weight lookup → stripe ICP → error
 triple or loss, ``train.trainer.Trainer``), the motion-gated eval solve,
 the data path over the converted Boreas layout (``data``), the
-evaluation harness (``evaluation``) and localization (``localization``:
-the teach pass, datagen and the localize CLI, with the radar detectors and
-point-cloud preprocessing under ``ops``).
+evaluation harness (``evaluation``), localization (``localization``: the
+teach pass, datagen and the localize CLI, with the radar detectors and
+point-cloud preprocessing under ``ops``), continuous-time odometry
+(``dicp.ct_icp``, ``geom.gp_interp``), MC-RANSAC with its descriptors
+(``ops.mcransac``, ``ops.descriptors``) and the policy's polar network
+input and output.
 
 Geometry runs in float32: TF32 is switched off for matmuls and for cuDNN
 convolutions at import, because reduced-precision distances pick wrong

@@ -461,57 +461,64 @@ def _new_state(T_init: torch.Tensor, n_points: int) -> dict:
     return st
 
 
-# Captured chunks of the tolerance-stopped solve, by configuration and the
-# shapes of its inputs: (static inputs, static state, CapturedStep).
+# Captured chunks of the tolerance-stopped solves (this module's and
+# ``dicp.ct_icp``'s), by key: (static inputs, static state, CapturedStep).
 _CHUNKS: dict = {}
 
 
-def _captured_chunk(inp: dict, T_init: torch.Tensor, cfg: ICPConfig, stripe: bool,
-                    k: int) -> tuple[dict, CapturedStep]:
-    """The chunk of k iterations as a CUDA graph over static copies of the
-    solve's inputs and state; loads this solve's inputs into them and sets
-    the state to its start."""
-    key = (cfg, stripe, k, T_init.device, T_init.shape, T_init.dtype,
-           tuple((name, t.shape, t.dtype) for name, t in sorted(inp.items())))
-    if key not in _CHUNKS:
-        with torch.inference_mode(False):  # static tensors outlive an inference call
-            s_inp = {name: torch.empty_like(t) for name, t in inp.items()}
-            s_st = _new_state(T_init, inp["source"].shape[1])
+def solve_in_chunks(key, inp: dict, device: torch.device, max_iterations: int,
+                    tolerance: float, new_state, start, iterate) -> tuple[dict, int, bool]:
+    """The loop of a tolerance-stopped solve: chunks of ``STOP_TEST_EVERY``
+    iterations (``iterate(st, inp, k)``, which must change nothing once the
+    solve has stopped), the stop test (any ``st["dn"]`` ≥ tolerance) read
+    from the device after each chunk but the last. On the card a chunk is a
+    CUDA graph captured once per ``key`` and input shapes over static
+    copies of ``inp`` and of the state (``new_state()``, a started state;
+    ``start(st)`` restarts it). Returns (the state, the stop-test reads,
+    whether the state is the graph's static one, which the next solve of
+    this key overwrites)."""
+    k = max(1, min(STOP_TEST_EVERY, max_iterations))
+    n_chunks = -(-max(max_iterations, 0) // k)
+    graphs = use_graphs(device) and n_chunks > 0
+    if graphs:
+        key = (key, k, device, tuple((name, t.shape, t.dtype) for name, t in sorted(inp.items())))
+        if key not in _CHUNKS:
+            with torch.inference_mode(False):  # static tensors outlive an inference call
+                s_inp = {name: torch.empty_like(t) for name, t in inp.items()}
+                s_st = new_state()
+            for name, t in inp.items():
+                s_inp[name].copy_(t)
+            _CHUNKS[key] = (s_inp, s_st,
+                            CapturedStep(lambda: iterate(s_st, s_inp, k), device))
+        s_inp, st, captured = _CHUNKS[key]
         for name, t in inp.items():
             s_inp[name].copy_(t)
-        chunk = CapturedStep(lambda: _iterate(s_st, s_inp, cfg, stripe, k), T_init.device)
-        _CHUNKS[key] = (s_inp, s_st, chunk)
-    s_inp, s_st, chunk = _CHUNKS[key]
-    for name, t in inp.items():
-        s_inp[name].copy_(t)
-    _start(s_st, T_init)
-    return s_st, chunk
-
-
-def _solve_to_tolerance(inp: dict, T_init: torch.Tensor, cfg: ICPConfig,
-                        stripe: bool) -> dict[str, Any]:
-    """The inference solve: chunks of ``STOP_TEST_EVERY`` iterations, the
-    stop test read from the device after each chunk but the last. The
-    result equals a loop that tests after every iteration."""
-    k = max(1, min(STOP_TEST_EVERY, cfg.max_iterations))
-    n_chunks = -(-max(cfg.max_iterations, 0) // k)
-    graphs = use_graphs(T_init.device) and n_chunks > 0
-    if graphs:
-        st, captured = _captured_chunk(inp, T_init, cfg, stripe, k)
+        start(st)
         chunk = captured.replay
     else:
-        st = _new_state(T_init, inp["source"].shape[1])
+        st = new_state()
 
         def chunk():
-            _iterate(st, inp, cfg, stripe, k)
+            iterate(st, inp, k)
     stop_tests = 0
     for c in range(n_chunks):
         chunk()
         if c + 1 == n_chunks:
             break
         stop_tests += 1
-        if not bool((st["dn"] >= cfg.tolerance).any()):
+        if not bool((st["dn"] >= tolerance).any()):
             break
+    return st, stop_tests, graphs
+
+
+def _solve_to_tolerance(inp: dict, T_init: torch.Tensor, cfg: ICPConfig,
+                        stripe: bool) -> dict[str, Any]:
+    """The inference solve, in chunks (:func:`solve_in_chunks`). The result
+    equals a loop that tests after every iteration."""
+    st, stop_tests, graphs = solve_in_chunks(
+        (cfg, stripe, T_init.shape, T_init.dtype), inp, T_init.device, cfg.max_iterations,
+        cfg.tolerance, lambda: _new_state(T_init, inp["source"].shape[1]),
+        lambda st: _start(st, T_init), lambda st, inp, n: _iterate(st, inp, cfg, stripe, n))
     out = {"T": st["T"], "iterations": st["iterations"], "delta_norm": st["dn"]}
     if graphs:  # the next solve of this shape overwrites the static state
         out = {name: t.clone() for name, t in out.items()}

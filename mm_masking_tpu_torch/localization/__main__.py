@@ -5,7 +5,8 @@ commands, options, files and printed stats:
 
   # Teach pass: build a map from a scan directory.
   python -m mm_masking_tpu_torch.localization teach \\
-      --scans <dir> --out-map map.npz [--out-traj odo_traj.txt]
+      --scans <dir> --out-map map.npz [--out-traj odo_traj.txt \\
+      [--interp-period-us 50000]]
 
   # Teach + repeat → training shards that ICPWeightDataset loads.
   python -m mm_masking_tpu_torch.localization datagen \\
@@ -152,9 +153,6 @@ def cmd_teach(args) -> int:
     from mm_masking_tpu_torch.localization.odometry import OdometryConfig, TeachPass
     from mm_masking_tpu_torch.localization.pipeline import LocalizationConfig
 
-    if args.interp_period_us > 0:
-        raise NotImplementedError("--interp-period-us (the continuous-time trajectory "
-                                  "export) is not ported yet: ROADMAP.md queue 1 item 14")
     device = resolve_device(args.device)
     kind, paths = _scan_files(args.scans)
     if args.limit > 0:
@@ -178,6 +176,25 @@ def cmd_teach(args) -> int:
     if args.out_traj:
         write_traj_file(args.out_traj, teach.trajectory, stamps)
         print(f"teach: odometry trajectory → {args.out_traj}")
+    if args.interp_period_us > 0:
+        # The trajectory's WNOA Gauss-process query at a fixed period. Times
+        # are seconds since the first stamp, taken in int64 before the float32
+        # cast: epoch microseconds in float32 seconds have a 128 s ulp.
+        if not args.out_traj:
+            print("teach: --interp-period-us requires --out-traj", file=sys.stderr)
+            return 2
+        from mm_masking_tpu_torch.geom import interpolate_trajectory
+        from mm_masking_tpu_torch.localization.odometry import seconds_since
+
+        q_us = np.arange(stamps[0], stamps[-1] + 1, args.interp_period_us, dtype=np.int64)
+        Ts = torch.stack(teach._poses)
+        Tq, _ = interpolate_trajectory(Ts, seconds_since(stamps, stamps[0]).to(device),
+                                       seconds_since(q_us, stamps[0]).to(device))
+        root, ext = os.path.splitext(args.out_traj)
+        interp_path = f"{root}_interp{ext or '.txt'}"
+        write_traj_file(interp_path, list(Tq.cpu().numpy()), list(q_us))
+        print(f"teach: GP-interpolated trajectory ({len(q_us)} poses @ "
+              f"{args.interp_period_us} us) → {interp_path}")
     return 0
 
 
@@ -356,7 +373,8 @@ def main(argv=None) -> int:
     t.add_argument("--out-map", required=True)
     t.add_argument("--out-traj", default="")
     t.add_argument("--interp-period-us", type=int, default=0,
-                   help="the continuous-time trajectory export (not ported; raises)")
+                   help="also write <out-traj>_interp: the trajectory's Gauss-process "
+                        "query every this many microseconds")
     t.add_argument("--max-map-pts", type=int, default=16384)
     t.set_defaults(fn=cmd_teach)
 

@@ -5,6 +5,13 @@ Counterpart of ``mm_masking_tpu.models.policy``. Parameters are a
 so the policy itself holds no trained state, like the JAX one. Training
 (``apply(train=True, generator=…)``) runs the UNet with dropout and the
 unrolled differentiable ICP; inference runs the tolerance-stopped solver.
+
+``network_input_type`` and ``network_output_type`` are "cartesian" or
+"polar", as in the JAX package. A polar input runs the UNet on the (A, R)
+scan, its range channel the polar range grid; a polar output is warped to
+the cartesian BEV before the weight lookup, through
+:func:`~mm_masking_tpu_torch.ops.radar.polar_mask_to_cartesian`, whose
+backward is the gather-form kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ from mm_masking_tpu_torch.ops import (
     cfar_mask,
     extract_weights,
     form_cart_range_angle_grid,
+    form_polar_range_grid,
+    polar_mask_to_cartesian,
     radar_polar_to_cartesian,
 )
 
@@ -85,10 +94,6 @@ class LearnICPWeightPolicy:
         self.cfg = cfg
         self.device = torch.device(device)
         m = cfg.model
-        if m.network_input_type != "cartesian" or m.network_output_type != "cartesian":
-            raise NotImplementedError(
-                "polar network input/output is not ported yet: ROADMAP.md queue 1, "
-                "'Polar policy I/O'")
         self.unet = UNet(
             in_channels=m.in_channels,
             enc_channels=m.enc_channels,
@@ -97,8 +102,11 @@ class LearnICPWeightPolicy:
             dropout=m.dropout,
             dtype=m.torch_dtype,
         ).to(self.device).eval()
-        self.range_mask = form_cart_range_angle_grid(
-            m.cart_resolution, m.cart_pixel_width, device=self.device)[0]
+        if m.network_input_type == "cartesian":
+            self.range_mask = form_cart_range_angle_grid(
+                m.cart_resolution, m.cart_pixel_width, device=self.device)[0]
+        else:
+            self.range_mask = form_polar_range_grid(m.res, m.polar_shape, device=self.device)
         self._icp_train = ICPConfig(
             icp_type=m.icp_type,
             max_iterations=m.max_iter,
@@ -164,24 +172,31 @@ class LearnICPWeightPolicy:
                       azimuths: torch.Tensor) -> torch.Tensor:
         """(B, A, R) raw polar power and (B, A) azimuths → (B, Wc, Wc)
         cartesian weight mask, ready for :func:`extract_weights` at the scan
-        points: the CFAR channel (when configured) and the polar→cartesian
-        warp of the raw scan, then :meth:`compute_mask`, the per-image max
-        normalisation (``norm_weights``) and ``binary_inference``. The
-        normalisation's statistics are over the frames passed together."""
+        points: the CFAR channel (when configured) and, for a cartesian
+        network input, the polar→cartesian warp of the raw scan; then
+        :meth:`compute_mask`, the per-image max normalisation
+        (``norm_weights``), ``binary_inference`` and, for a polar network
+        output, the mask's warp to cartesian. The normalisation's statistics
+        are over the frames passed together."""
         m = self.cfg.model
-        cfar_in = None
+        fft_in, cfar_in = fft_polar, None
         if m.cfar_input:
             cfar_in = cfar_mask(fft_polar, m.res, a_thresh=m.a_thresh, b_thresh=m.b_thresh,
                                 diff=False)
-            cfar_in = radar_polar_to_cartesian(cfar_in, azimuths, m.res, m.cart_resolution,
-                                               m.cart_pixel_width)
-        fft_in = radar_polar_to_cartesian(fft_polar, azimuths, m.res, m.cart_resolution,
-                                          m.cart_pixel_width)
+        if m.network_input_type == "cartesian":
+            fft_in = radar_polar_to_cartesian(fft_polar, azimuths, m.res, m.cart_resolution,
+                                              m.cart_pixel_width)
+            if cfar_in is not None:
+                cfar_in = radar_polar_to_cartesian(cfar_in, azimuths, m.res,
+                                                   m.cart_resolution, m.cart_pixel_width)
         mask = self.compute_mask(params, fft_in, cfar_in)
         if m.norm_weights:
             mask = torch.minimum(mask / _safe_amax_hw(mask), mask.new_ones(()))
         if m.binary_inference:
             mask = (mask > 0.5).to(mask.dtype)
+        if m.network_output_type == "polar":
+            mask = radar_polar_to_cartesian(mask, azimuths, m.res, m.cart_resolution,
+                                            m.cart_pixel_width)
         return mask
 
     def apply(
@@ -224,8 +239,12 @@ class LearnICPWeightPolicy:
         if mask_only:
             return weight_mask
 
+        cart_mask = weight_mask
+        if m.network_output_type == "polar":
+            cart_mask = polar_mask_to_cartesian(weight_mask, batch_scan["azimuths"], m.res,
+                                                m.cart_resolution, m.cart_pixel_width)
         weights, stats = extract_weights(
-            weight_mask, batch_scan["raw_pc"],
+            cart_mask, batch_scan["raw_pc"],
             cart_resolution=m.cart_resolution, cart_pixel_width=m.cart_pixel_width,
         )
         raw = batch_scan["raw_pc"]

@@ -183,35 +183,47 @@ class UNet(nn.Module):
         return torch.sigmoid(conv1x1(x, self.final.weight, self.final.bias))[:, 0]
 
 
+def _stage_sizes(enc_channels: Sequence[int], size) -> list[tuple[int, int]]:
+    """(H, W) of each encoder block's input: the max-pool after every block
+    but the first floors both sides."""
+    h, w = (size, size) if isinstance(size, int) else size
+    sizes = []
+    for i, _ in enumerate(enc_channels):
+        sizes.append((h, w))
+        if i > 0:
+            h, w = h // 2, w // 2
+    return sizes + [(h, w)]
+
+
 def conv3x3_shapes(enc_channels: Sequence[int] = (8, 16, 32, 64, 128, 256),
-                   width: int = 640, in_channels: int = 1) -> list[tuple[int, int, int]]:
-    """(Ci, Co, H) of the 3×3 convs of one :class:`UNet` forward on a
-    width × width image, in the order they run (each decoder block twice)."""
-    shapes, skips, h, cin = [], [], width, in_channels
+                   width=640, in_channels: int = 1) -> list[tuple[int, ...]]:
+    """The 3×3 convs of one :class:`UNet` forward, in the order they run
+    (each decoder block twice): (Ci, Co, H) on a width × width image, or
+    (Ci, Co, H, W) when ``width`` is an (H, W) pair, as the polar scan is."""
+    sizes = _stage_sizes(enc_channels, width)
+    shapes, cin = [], in_channels
     for i, ch in enumerate(enc_channels):
-        skips.append(h)
-        shapes += [(cin, ch, h), (ch, ch, h)]
+        shapes += [(cin, ch, *sizes[i]), (ch, ch, *sizes[i])]
         cin = ch
-        if i > 0:  # the block's max-pool
-            h //= 2
     for i, feat in enumerate(list(enc_channels)[-2::-1]):
-        h = skips[-1 - i]
-        shapes += [(cin, feat, h), (feat, feat, h), (2 * feat, feat, h), (feat, feat, h)]
+        hw = sizes[-2 - i]
+        shapes += [(cin, feat, *hw), (feat, feat, *hw), (2 * feat, feat, *hw), (feat, feat, *hw)]
         cin = feat
+    if isinstance(width, int):
+        return [s[:3] for s in shapes]
     return shapes
 
 
 def upsample_shapes(enc_channels: Sequence[int] = (8, 16, 32, 64, 128, 256),
-                    width: int = 640) -> list[tuple[int, int, int]]:
-    """(C, h, H) of the upsamples of one :class:`UNet` forward on a width ×
-    width image, in the order they run: C channels from h × h to H × H."""
-    skips, h = [], width
-    for i, _ in enumerate(enc_channels):
-        skips.append(h)
-        if i > 0:  # the block's max-pool
-            h //= 2
+                    width=640) -> list[tuple[int, ...]]:
+    """The upsamples of one :class:`UNet` forward, in the order they run: (C,
+    h, H), C channels from h × h to H × H, or (C, h, w, H, W) when ``width``
+    is an (H, W) pair."""
+    sizes = _stage_sizes(enc_channels, width)
     shapes, cin = [], enc_channels[-1]
     for i, feat in enumerate(list(enc_channels)[-2::-1]):
-        shapes.append((cin, h, skips[-1 - i]))
-        h, cin = skips[-1 - i], feat
+        shapes.append((cin, *sizes[-1 - i], *sizes[-2 - i]))
+        cin = feat
+    if isinstance(width, int):
+        return [(c, h, H) for c, h, _, H, _ in shapes]
     return shapes

@@ -1,10 +1,19 @@
-"""Navtech radar decode, cartesian pixel grids and the polar→cartesian warp.
+"""Navtech radar decode, pixel grids and the polar↔cartesian warps.
 
 Counterpart of ``mm_masking_tpu.ops.radar`` (reference
-``radar_utils.py:20-27,258-336,374-419``): the host-side scan decode
+``radar_utils.py:20-27,187-195,258-437``): the host-side scan decode
 (:func:`load_radar`, numpy), and on tensors the half-bin range offset, the
 searchsorted azimuth "wobble" fix, first/last-azimuth crossover padding and
-bilinear, zero-padded, align-corners sampling.
+bilinear, zero-padded, align-corners sampling; the inverse warp and the
+polar range grid of the polar network I/O.
+
+:func:`polar_mask_to_cartesian` is the polar→cartesian warp of a mask that
+the train step differentiates: the same sampling, taken as a lookup of the
+W² pixels' coordinates, whose mask gradient is the gather-form kernel of
+``ops/kernels/resample.py`` (``bilinear_points_bwd``) on the card.
+``F.grid_sample``'s own backward adds with float atomics there, and the
+train step is bitwise repeatable. The coordinates depend on the azimuths
+alone; no gradient flows to them.
 """
 from __future__ import annotations
 
@@ -13,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from mm_masking_tpu_torch.ops.grid_sample import grid_sample_2d
+from mm_masking_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_points
 
 POLAR_RESOLUTION = 0.0596  # m / range bin
 CART_RESOLUTION = 0.2384  # m / cartesian pixel
@@ -46,6 +55,12 @@ def load_radar(raw_data: np.ndarray, normalize: bool = True):
     return fft_data, azimuths, timestamps
 
 
+def pol_2_cart(pointcloud: torch.Tensor) -> torch.Tensor:
+    """(…, N, ≥2) polar points (rho, phi, …) → (…, N, 3) cartesian, z = 0."""
+    rho, phi = pointcloud[..., 0], pointcloud[..., 1]
+    return torch.stack([rho * torch.cos(phi), rho * torch.sin(phi), torch.zeros_like(rho)], -1)
+
+
 @functools.lru_cache(maxsize=8)
 def _cart_range_angle_grid_np(cart_resolution: float, cart_pixel_width: int):
     if cart_pixel_width % 2 == 0:
@@ -74,6 +89,29 @@ def form_cart_range_angle_grid(
             torch.tensor(a, dtype=dtype, device=device))
 
 
+def form_polar_range_grid(
+    polar_resolution: float = CART_RESOLUTION,
+    polar_pixel_shape: tuple[int, int] = POLAR_SHAPE,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """(A, R) grid whose rows hold each range bin's range in m, bin 0 at 0 m.
+    The default resolution is the cartesian one, as in the reference; callers
+    pass the polar one."""
+    polar_range = (polar_pixel_shape[1] - 1) * polar_resolution
+    coords = torch.linspace(0.0, polar_range, polar_pixel_shape[1], dtype=dtype, device=device)
+    return coords[None, :].expand(polar_pixel_shape)
+
+
+@functools.lru_cache(maxsize=16)
+def _cart_grid_on(cart_resolution: float, cart_pixel_width: int, dtype: torch.dtype,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`form_cart_range_angle_grid` kept on ``device``: a captured step
+    that warps finds it there and copies nothing from the host."""
+    with torch.inference_mode(False):
+        return form_cart_range_angle_grid(cart_resolution, cart_pixel_width, dtype, device)
+
+
 def _wobble_sample_v(azimuths: torch.Tensor, sample_angle: torch.Tensor) -> torch.Tensor:
     """Fractional azimuth index of each pixel against the measured, non-uniform
     encoder azimuths. azimuths (B, A) sorted; sample_angle (B, H, W)."""
@@ -100,10 +138,35 @@ def radar_polar_to_cartesian(
     fix_wobble: bool = True,
 ) -> torch.Tensor:
     """fft_data (B, A, R), azimuths (B, A) → (B, W, W) BEV image."""
+    data, warp = _polar_warp(fft_data, azimuths, radar_resolution, *form_cart_range_angle_grid(
+        cart_resolution, cart_pixel_width, fft_data.dtype, fft_data.device),
+        interpolate_crossover, fix_wobble)
+    return grid_sample_2d(data[:, None], warp, align_corners=True)[:, 0]
+
+
+def polar_mask_to_cartesian(
+    mask: torch.Tensor,
+    azimuths: torch.Tensor,
+    radar_resolution: float = POLAR_RESOLUTION,
+    cart_resolution: float = CART_RESOLUTION,
+    cart_pixel_width: int = CART_PIXEL_WIDTH,
+) -> torch.Tensor:
+    """:func:`radar_polar_to_cartesian` of a differentiated polar mask (B, A,
+    R) → (B, W, W): the W² pixels sampled as points, so that the mask's
+    gradient is the gather-form lookup backward (the same bilinear,
+    zero-padded, align-corners taps)."""
+    data, warp = _polar_warp(mask, azimuths, radar_resolution, *_cart_grid_on(
+        float(cart_resolution), int(cart_pixel_width), mask.dtype, mask.device), True, True)
+    B = mask.shape[0]
+    return grid_sample_points(data, warp.detach().reshape(B, -1, 2)).reshape(
+        B, cart_pixel_width, cart_pixel_width)
+
+
+def _polar_warp(fft_data, azimuths, radar_resolution, sample_range, sample_angle,
+                interpolate_crossover, fix_wobble):
+    """(the polar data with its crossover rows, the warp (B, W, W, 2) in
+    grid_sample's [-1, 1] coordinates) of the polar→cartesian warp."""
     B, A, R = fft_data.shape
-    sample_range, sample_angle = form_cart_range_angle_grid(
-        cart_resolution, cart_pixel_width, fft_data.dtype, fft_data.device
-    )
     sample_range = sample_range.expand(B, -1, -1)
     sample_angle = sample_angle.expand(B, -1, -1)
 
@@ -124,8 +187,26 @@ def radar_polar_to_cartesian(
 
     sample_u = sample_u / (R - 1) * 2 - 1
     sample_v = sample_v / (A_pad - 1) * 2 - 1
-    warp = torch.stack([sample_u, sample_v], dim=-1)
-    return grid_sample_2d(fft_data[:, None], warp, align_corners=True)[:, 0]
+    return fft_data, torch.stack([sample_u, sample_v], dim=-1)
+
+
+def radar_cartesian_to_polar(
+    cart: torch.Tensor,
+    azimuths: torch.Tensor,
+    radar_resolution: float = POLAR_RESOLUTION,
+    cart_resolution: float = CART_RESOLUTION,
+    polar_pixel_shape: tuple[int, int] = POLAR_SHAPE,
+) -> torch.Tensor:
+    """Inverse warp (reference ``radar_utils.py:338-372``): (B, W, W) BEV →
+    (B, A, R) polar, each range bin projected along its measured azimuth to
+    the centred pixel grid and sampled bilinearly."""
+    B, H, W = cart.shape
+    range_coords = form_polar_range_grid(radar_resolution, polar_pixel_shape, cart.dtype,
+                                         cart.device)[0]
+    sample_u = torch.sin(azimuths)[..., None] * range_coords / cart_resolution
+    sample_v = -(torch.cos(azimuths)[..., None] * range_coords) / cart_resolution
+    warp = torch.stack([sample_u / (W - 1) * 2, sample_v / (H - 1) * 2], dim=-1)
+    return grid_sample_2d(cart[:, None], warp, align_corners=True)[:, 0]
 
 
 def point_to_cart_idx(

@@ -107,6 +107,13 @@ def eval_training_loss(
         if weights.cfar > 0.0:
             loss_cfar = bce(mask, batch_scan["fft_cfar"])
         if weights.mask_pts > 0.0:
+            if tuple(mask.shape[-2:]) != (cart_pixel_width, cart_pixel_width):
+                # A polar mask against the cartesian BEV: the JAX package's
+                # shapes do not broadcast there either (ROADMAP §3, Decisions).
+                raise ValueError(
+                    f"loss.mask_pts compares the mask {tuple(mask.shape)} with the map's "
+                    f"cartesian BEV {(mask.shape[0], cart_pixel_width, cart_pixel_width)}; "
+                    "a polar network output trains with loss.mask_pts=0")
             map_bev = extract_bev_from_pts(batch_map["pc"][..., :3],
                                            cart_pixel_width=cart_pixel_width,
                                            cart_resolution=cart_resolution)

@@ -123,15 +123,19 @@ def test_teach_then_localize_match_jax(tmp_path, world):
         d.mkdir()
         assert main(["teach", "--scans", str(tmp_path / "teach"), "--out-map",
                      str(d / "map.npz"), "--out-traj", str(d / "odo.txt"), "--max-points", "1024",
-                     "--max-map-pts", "1024"] + extra) == 0
+                     "--max-map-pts", "1024", "--interp-period-us", "30000"] + extra) == 0
         assert main(["localize", "--scans", str(tmp_path / "repeat"), "--map",
                      str(d / "map.npz"), "--out-traj", str(d / "traj.txt"), "--map-gt",
                      str(tmp_path / "map_gt.csv"), "--loc-gt", str(tmp_path / "loc_gt.csv"),
                      "--stats", str(d / "stats.json"), "--max-points", "1024", "--batch-size",
                      "2", "--icp-type", "pt2pt", "--normal-threshold", "1.0"] + extra) == 0
         outs[name] = (np.load(d / "map.npz")["map_pc"], json.load(open(d / "stats.json")),
-                      read_traj_file(str(d / "odo.txt")))
-    (jmap, jstats, jodo), (pmap, pstats, podo) = outs["jax"], outs["port"]
+                      read_traj_file(str(d / "odo.txt")),
+                      read_traj_file(str(d / "odo_interp.txt")))
+    (jmap, jstats, jodo, jint), (pmap, pstats, podo, pint) = outs["jax"], outs["port"]
+    # The export: 1 000 000 … 1 200 000 µs every 30 000 µs, within the poses' limits.
+    assert pint[1] == jint[1] == list(range(1_000_000, 1_200_001, 30_000))
+    np.testing.assert_allclose(np.stack(pint[0]), np.stack(jint[0]), rtol=0, atol=1e-4)
     assert pmap.shape == jmap.shape == (1024, 6)
     np.testing.assert_allclose(pmap[:, :3], jmap[:, :3], rtol=0, atol=4e-4)
     np.testing.assert_allclose(np.stack(podo[0]), np.stack(jodo[0]), rtol=0, atol=1e-4)
@@ -331,6 +335,28 @@ def test_load_radar_frames_normalizes_fft_scale(tmp_path):
     np.testing.assert_allclose(clouds, want, rtol=0, atol=1e-5)
 
 
+def test_teach_trajectory_export_at_epoch_stamps(tmp_path, world):
+    """At Boreas's epoch stamps (~1.6e15 µs) JAX's float32 seconds put every
+    knot on one time (a 128 s ulp); the port's export at epoch stamps equals
+    its export at the same stamps less the first."""
+    poses = [planar_T(0.2 * i, 0.01 * i, 0.01 * i) for i in range(3)]
+    epoch = 1606417230036848
+    out = {}
+    for name, t0 in (("small", 0), ("epoch", epoch)):
+        stamps = [t0 + 100_000 * i for i in range(3)]
+        write_shards(tmp_path / name, world, poses, stamps, np.random.default_rng(5))
+        assert cli.main(["teach", "--scans", str(tmp_path / name), "--out-map",
+                         str(tmp_path / f"{name}.npz"), "--out-traj", str(tmp_path / f"{name}.txt"),
+                         "--max-points", "1024", "--max-map-pts", "1024", "--interp-period-us",
+                         "25000"] + CPU) == 0
+        out[name] = read_traj_file(str(tmp_path / f"{name}_interp.txt"))
+    assert out["epoch"][1] == [epoch + s for s in out["small"][1]]
+    assert len(out["small"][1]) == 9
+    np.testing.assert_array_equal(np.stack(out["epoch"][0]), np.stack(out["small"][0]))
+    knots = np.asarray([epoch + 100_000 * i for i in range(3)], np.float64)
+    assert len(set(knots.astype(np.float32) * np.float32(1e-6))) == 1  # JAX's cast
+
+
 def test_cli_refusals(tmp_path, world):
     write_shards(tmp_path / "s", world, [np.eye(4)], [1], np.random.default_rng(6))
     np.savez_compressed(tmp_path / "bad.npz", map_pc=world)  # no normals
@@ -343,9 +369,9 @@ def test_cli_refusals(tmp_path, world):
     with pytest.raises(SystemExit, match="raw radar"):
         cli.main(loc + ["--map", str(tmp_path / "bad.npz"), "--icp-type", "pt2pt",
                         "--checkpoint", str(tmp_path)] + CPU)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["teach", "--scans", str(tmp_path / "s"), "--out-map", str(tmp_path / "m.npz"),
-                  "--interp-period-us", "50000"] + CPU)
+    # The trajectory export needs the trajectory file, as the JAX CLI's does.
+    assert cli.main(["teach", "--scans", str(tmp_path / "s"), "--out-map",
+                     str(tmp_path / "m.npz"), "--interp-period-us", "50000"] + CPU) == 2
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="--device cpu"):
             cli.main(loc + ["--map", str(tmp_path / "bad.npz"), "--icp-type", "pt2pt"])

@@ -286,6 +286,31 @@ def test_conv3x3_backward_kernels_match_plain(cuda, Ci, Co, H, dtype):
     assert rel_err(dx, conv3x3_dx_plain(dy, w)) <= (1e-4 if dtype == torch.float32 else 2e-2)
 
 
+POLAR = (400, 3360)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Ci,Co,H,W", sorted(set(conv3x3_shapes(width=POLAR))))
+def test_conv3x3_kernels_match_plain_at_the_polar_stages(cuda, Ci, Co, H, W, dtype):
+    """K2 (forward, dx) and K3 (dk) at every stage of the polar UNet, 400 x
+    3360 ... 25 x 210, widths no multiple of the kernels' tiles: against the
+    plain versions (1e-4 of max, 2e-2 in bf16 for the forward and dx), dk
+    within 1e-5 of a float64 sum and bitwise across two runs."""
+    g = torch.Generator(device=cuda).manual_seed(40)
+    x = torch.randn(2, Ci, H, W, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(2, Co, H, W, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(Co, Ci, 3, 3, generator=g, device=cuda) * (2.0 / (9 * (Ci + Co))) ** 0.5
+         ).to(dtype)
+    b = torch.linspace(-0.1, 0.1, Co, device=cuda).to(dtype)
+    lim = 1e-4 if dtype == torch.float32 else 2e-2
+    assert rel_err(conv3x3(x, w, b, True), conv3x3_plain(x, w, b, True)) <= lim
+    assert rel_err(conv3x3_dx(dy, w), conv3x3_dx_plain(dy, w)) <= lim
+    dk = conv3x3_dk(x, dy)
+    assert torch.equal(dk, conv3x3_dk(x, dy))
+    dk64 = torch.nn.grad.conv2d_weight(x.double(), dk.shape, dy.double(), padding=1)
+    assert rel_err(dk, dk64) <= 1e-5
+
+
 def test_conv3x3_f32_blocks_fit_the_shared_memory(cuda):
     """The float32 kernel's block at each UNet stage shape, as the forward
     (Co outputs) and as dx (Ci outputs), fits the 227 KB a block may have."""
@@ -736,7 +761,11 @@ def test_conv_probe_kernels_match_plain(cuda, case, dtype):
 RESIZE_CASES = ([(16, c, H, H, h, 3) for c, h, H in upsample_shapes()]
                 + [(16, c, H, h, h, 2) for c, h, H in upsample_shapes()]
                 + [(2, 3, 9, 13, 1, 3), (2, 3, 9, 13, 1, 2), (2, 5, 7, 33, 17, 3),
-                   (3, 4, 11, 6, 4, 2)])
+                   (3, 4, 11, 6, 4, 2)]
+                # The polar UNet's upsamples, 12 x 105 -> 25 x 210 ... 200 x 1680
+                # -> 400 x 3360, at B = 4.
+                + [(4, c, H, W, w, 3) for c, h, w, H, W in upsample_shapes(width=POLAR)]
+                + [(4, c, H, w, h, 2) for c, h, w, H, W in upsample_shapes(width=POLAR)])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -896,6 +925,25 @@ def test_train_step_chains_are_bitwise_repeatable(cuda, dtype, path):
     with eager() if path == "eager" else contextlib.nullcontext():
         a, b = (train_chain(trainer, batch, trainer.init_state(6)) for _ in range(2))
     assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x, y), i
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_polar_train_step_chains_are_bitwise_repeatable(cuda, dtype):
+    """Polar network input and output (the mask warped to cartesian, its
+    gradient by the lookup kernel, no float atomics), mask_pts = 0: two
+    chains of 3 graph steps from one seed end in the same bits."""
+    trainer, spec = small_trainer(cuda, max_iter=3, dropout=0.05, dtype=dtype,
+                                  network_input_type="polar", network_output_type="polar")
+    trainer = Trainer(dataclasses.replace(trainer.cfg, loss=dataclasses.replace(
+        trainer.cfg.loss, mask_pts=0.0)), cuda)
+    batch = synthetic_batch(9, 4, dataclasses.replace(spec, network_input_type="polar"),
+                            device=cuda)
+    assert batch["loc_data"]["fft_data"].shape == (4, 128, 512)
+    reset_launch_counts()
+    a, b = (train_chain(trainer, batch, trainer.init_state(6)) for _ in range(2))
+    assert launch_counts()["bilinear_points_bwd"] >= 2 * 6
     for i, (x, y) in enumerate(zip(a, b)):
         assert torch.equal(x, y), i
 
@@ -1226,6 +1274,48 @@ def test_teach_passes_are_bitwise_equal(cuda):
     assert plain.n_keyframes == one.n_keyframes
     dt = (torch.stack(one._poses) - torch.stack(plain._poses))[:, :3, 3].norm(dim=-1)
     assert dt.max().item() <= 1e-4
+
+
+def scan_times(scans: torch.Tensor) -> torch.Tensor:
+    """Per-point times of the sweep: each scan's points in azimuth order."""
+    az = torch.atan2(scans[..., 1], scans[..., 0]) % (2 * torch.pi)
+    return az / (2 * torch.pi) * 0.25
+
+
+@pytest.mark.parametrize("mode", ["continuous_time", "use_mcransac"])
+def test_teach_pass_modes_on_the_card_match_the_cpu_port(cuda, mode):
+    """The continuous-time teach pass (the joint pose and twist solve, K1 in
+    every GN iteration) and the MC-RANSAC one (K1's pre-association, then
+    the ICP): two passes on the card bitwise equal, the card against the
+    plain path and against the CPU port (keyframes equal, poses 1e-4 m)."""
+    from mm_masking_tpu_torch.localization import OdometryConfig, TeachPass
+
+    scans = teach_scans(cuda)
+    times = scan_times(scans)
+
+    def run(device):
+        tp = TeachPass(OdometryConfig(max_map_pts=4096, **{mode: True}))
+        for k, s in enumerate(scans):
+            tp.process(s.to(device), stamp_us=250_000 * k, times=times[k].to(device))
+        return tp
+
+    reset_launch_counts()
+    one = run(cuda)
+    assert launch_counts()["nn_argmin"] >= len(scans) - 1
+    two = run(cuda)
+    assert torch.equal(one.map_pts, two.map_pts)
+    assert torch.equal(torch.stack(one._poses), torch.stack(two._poses))
+    with plain_versions():
+        plain = run(cuda)
+    cpu = run("cpu")
+    for other in (plain, cpu):
+        assert other.n_keyframes == one.n_keyframes
+        dt = (torch.stack(one._poses).cpu() - torch.stack(other._poses).cpu())[:, :3, 3]
+        assert dt.norm(dim=-1).max().item() <= 1e-4
+    if mode == "continuous_time":
+        T, w = one.pose_at(250_000 * 4 + 125_000)
+        T_cpu, _ = cpu.pose_at(250_000 * 4 + 125_000)
+        assert (T.cpu() - T_cpu)[:3, 3].norm().item() <= 1e-4 and torch.isfinite(w).all()
 
 
 def test_knn_ties_on_cuda_in_index_order(cuda):

@@ -144,16 +144,28 @@ def test_yaw_to_se3_matches_jax():
 
 
 def test_unported_odometry_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        odometry.TeachPass(odometry.OdometryConfig(continuous_time=True))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        odometry.TeachPass(odometry.OdometryConfig(use_mcransac=True))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        odometry.register_frame(torch.zeros(1, 4, 3), torch.zeros(1, 8, 3), torch.eye(4)[None],
+    """The continuous-time and MC-RANSAC paths (items 14 and 15) run: each
+    former refusal now returns (their values are held against JAX in
+    ``tests/test_torch_ct_icp.py`` and ``tests/test_torch_ransac.py``)."""
+    frames, _ = scans(n_frames=3)
+    times = np.linspace(0.0, 1.0, frames[0].shape[0], dtype=np.float32)
+    ct = odometry.TeachPass(odometry.OdometryConfig(continuous_time=True, **CFG))
+    for i, s in enumerate(frames):
+        ct.process(torch.from_numpy(s), stamp_us=1000 * i, times=torch.from_numpy(times))
+    T, w = ct.pose_at(1500)
+    assert T.shape == (4, 4) and w.shape == (6,) and torch.isfinite(T).all()
+    ransac = odometry.TeachPass(odometry.OdometryConfig(use_mcransac=True, **CFG))
+    for s in frames:
+        ransac.process(torch.from_numpy(s))
+    assert np.isfinite(np.stack(ransac.trajectory)).all()
+    scan, mp = torch.from_numpy(frames[1])[None], ct.map_pts[None]
+    T = odometry.register_frame(scan, mp, torch.eye(4)[None],
                                 odometry.OdometryConfig(use_mcransac=True))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        odometry.register_frame_ct(None, None, None, None, None, odometry.OdometryConfig())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        odometry.TeachPass().pose_at(0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        odometry.descriptor_bootstrap(None, None, None, None, 0.25)
+    T_end, xi = odometry.register_frame_ct(scan, torch.from_numpy(times)[None], mp,
+                                           torch.eye(4)[None], torch.zeros(1, 3),
+                                           odometry.OdometryConfig())
+    assert T.shape == T_end.shape == (1, 4, 4) and xi.shape == (1, 3)
+    img = torch.rand(1, 64, 64)
+    pts = torch.from_numpy(frames[0][:32])[None] * 0.2
+    out = odometry.descriptor_bootstrap(img, pts, img, pts, 0.25)
+    assert out["T"].shape == (1, 4, 4) and out["matches"].dtype == torch.int32
