@@ -213,6 +213,32 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
            and P4's shapes logged with its time, yardstick and bound; every
            probe kernel and variant must have launched.
 
+16. mesh   (after determinism) data parallelism: a NCCL group of one
+           process, the train step at B = 16 with its gradient all-reduce
+           and batch reductions captured in its CUDA graph, 3 replays bitwise
+           equal to the step without a mesh and timed beside it; the eval
+           step at B = 32 and ``localize_sequence(mesh=)`` on 8 polar frames
+           with the mask, bitwise equal to the calls without a mesh. Then two
+           processes on the one card in a gloo group, eager (gloo cannot be
+           captured), 8 rows each, 2 steps against one process's eager steps
+           (loss 1e-5 relative and parameters within 4 learning rates, the
+           CPU tests' limits; grad_norm 1e-3, the gradient's own conditioning
+           on the card), K2, K3 and K4 launched on each rank.
+           The machine has one card: no run on two cards.
+17. bn     (after mesh) ``model.batch_norm=True`` at full width, B = 16, f32
+           and bf16: the step captured with its running statistics updated
+           in place, 3 replays against eager steps from their states, two
+           graph chains bitwise equal (running statistics included), ms and
+           peak MiB beside the step without batch norm.
+18. deploy (after e2e) the e2e run exported with ``torch.export`` on the
+           card (bf16, 400 x 3360 → 640^2, K2 as the custom operator
+           ``mm_masking::conv3x3``) and the localizer at N = 4096, M = 16384
+           (K1 and K4 as custom operators; 10 refined iterations, the export
+           tracing each); both loaded in a fresh process:
+           the mask at B = 1 and 8 and the localizer at B = 8 bitwise equal
+           to the direct calls, K2 and K1 launched; export seconds and ms a
+           frame, artifact against direct.
+
 Every kernel's row carries its bound (``timing.bound_ms``: the larger of
 its operations over the H100's peak for the input type and its bytes over
 3.35 TB/s, summed over the launches a row times; the convs' float32 work at
@@ -226,10 +252,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -240,6 +268,8 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 from torch.func import functional_call
 
@@ -256,6 +286,7 @@ from mm_masking_tpu_torch.data import (
 from mm_masking_tpu_torch.data.boreas import yawPitchRollToRot
 from mm_masking_tpu_torch.data.loader import _collate, to_tensors
 from mm_masking_tpu_torch.data.testing import write_synthetic_dataset
+from mm_masking_tpu_torch.deploy import export_from_run_dir, export_localizer, write_artifact
 from mm_masking_tpu_torch.dicp import icp
 from mm_masking_tpu_torch.dicp.icp import STOP_TEST_EVERY
 from mm_masking_tpu_torch.evaluation import (
@@ -298,8 +329,9 @@ from mm_masking_tpu_torch.ops.kernels.conv2d import (
     conv3x3_forward,
     conv3x3_plain,
 )
+from mm_masking_tpu_torch.parallel import make_mesh
 from mm_masking_tpu_torch.train import Trainer, train_icp_weights
-from mm_masking_tpu_torch.train.checkpoint import load_checkpoint
+from mm_masking_tpu_torch.train.checkpoint import load_checkpoint, load_policy_variables
 
 BATCH, N_SCAN, N_MAP = 32, 4096, 16384
 TRAIN_BATCH, TRAIN_STEPS = 16, 3  # the train step's shapes (bench.py:215-243)
@@ -357,22 +389,29 @@ KERNELS = {
 # polar train steps (float32, bfloat16) and eval step, the continuous-time
 # and MC-RANSAC teach passes and the probe timing (whose bfloat16 K2
 # yardstick is the bfloat16 K2 row's).
+# Then the mesh phase's train steps over a NCCL group of one and over two
+# gloo ranks on the card (float32), the batch-norm train steps (float32,
+# bfloat16) and the deploy phase's loaded artifacts (the bfloat16 recipe's
+# mask policy, the localizer).
 NN_PHASES = ("slice", "dense", "slice_bf16", "refresh", "refresh_dense", "train", "train_bf16",
              "implicit", "implicit_pt2pl", "implicit_bf16", "data", "localize", "localize_bf16",
-             "e2e", "polar", "polar_bf16", "polar_eval", "ct", "ransac")
+             "e2e", "polar", "polar_bf16", "polar_eval", "ct", "ransac", "mesh", "mesh_gloo",
+             "bn", "bn_bf16", "deploy")
 ROW_PHASES = {
     "conv3x3": ("slice", "dense", "train", "implicit", "implicit_pt2pl", "data", "localize",
-                "polar", "polar_eval"),
-    "conv3x3_dk": ("train", "implicit", "implicit_pt2pl", "data", "polar"),
+                "polar", "polar_eval", "mesh", "mesh_gloo", "bn"),
+    "conv3x3_dk": ("train", "implicit", "implicit_pt2pl", "data", "polar", "mesh", "mesh_gloo",
+                   "bn"),
     "conv3x3_bf16": ("slice_bf16", "refresh", "refresh_dense", "train_bf16", "implicit_bf16",
-                     "probes", "localize_bf16", "e2e", "polar_bf16"),
-    "conv3x3_dk_bf16": ("train_bf16", "implicit_bf16", "e2e", "polar_bf16"),
+                     "probes", "localize_bf16", "e2e", "polar_bf16", "bn_bf16", "deploy"),
+    "conv3x3_dk_bf16": ("train_bf16", "implicit_bf16", "e2e", "polar_bf16", "bn_bf16"),
     "nn_stripe": NN_PHASES,
     "nn_argmin": NN_PHASES,
     "resize_bwd": ("train", "train_bf16", "implicit", "implicit_pt2pl", "implicit_bf16", "data",
-                   "e2e", "polar", "polar_bf16"),
+                   "e2e", "polar", "polar_bf16", "mesh", "mesh_gloo", "bn", "bn_bf16"),
     "bilinear_points_bwd": ("train", "train_bf16", "implicit", "implicit_pt2pl",
-                            "implicit_bf16", "data", "e2e", "polar", "polar_bf16"),
+                            "implicit_bf16", "data", "e2e", "polar", "polar_bf16", "mesh",
+                            "mesh_gloo", "bn", "bn_bf16"),
 }
 # Each probe's row is timed at the canonical low-channel stage (B = 16, 640^2,
 # 16 -> 16, bf16) with the probe's own default tile.
@@ -2489,7 +2528,7 @@ def run_ct_ransac(device, cfg: Config, smi: str) -> tuple[dict, dict]:
 E2E_EPOCHS = 2  # the e2e phase's epochs of the recipe at full width, one training sequence
 
 
-def run_e2e(device, smi: str) -> dict:
+def run_e2e(device, smi: str, keep: str) -> dict:
     """Phase 11: the product recipe (``benchmarks/e2e_product.py``'s
     ``main``) at full width in a temporary directory, with the counters from
     0: synthesis, datagen, 2 epochs of bf16 pt2pl training, the baselines;
@@ -2497,7 +2536,9 @@ def run_e2e(device, smi: str) -> dict:
     bf16 (forward and dx), K3 bf16 and K4 launched. Then the train step on
     the recipe's first training batch (detector-extracted clouds, map with
     normals): captured and replayed against eager steps from each replay's
-    state, and against the plain path. Returns the main path's counters."""
+    state, and against the plain path. The run's ``config.json`` and
+    ``best_policy.pt`` are copied to ``keep`` (the deploy phase exports
+    them). Returns the main path's counters."""
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--scale", "full", "--train-seqs", "1", "--epochs", str(E2E_EPOCHS),
                 "--root", os.path.join(tmp, "tree"), "--run-name", "e2e_smoke",
@@ -2533,7 +2574,10 @@ def run_e2e(device, smi: str) -> dict:
                 if counts[k] < 1]
         if idle:
             raise AssertionError(f"e2e: kernels of the recipe's path did not launch: {idle}")
-        metrics = os.path.join(tmp, "results", "checkpoints", "e2e_smoke", "run_metrics.jsonl")
+        run_dir = os.path.join(tmp, "results", "checkpoints", "e2e_smoke")
+        for name in ("config.json", "best_policy.pt"):
+            shutil.copy(os.path.join(run_dir, name), keep)
+        metrics = os.path.join(run_dir, "run_metrics.jsonl")
         with open(metrics) as f:
             gmax = [r["grad_norm_max"] for r in map(json.loads, f) if r["event"] == "epoch"]
         log("e2e", f"grad_norm_max by epoch {gmax} (the gate's G3 limit: under 100)")
@@ -2583,6 +2627,353 @@ def run_e2e(device, smi: str) -> dict:
     if d_loss > 2e-2 or d_gnorm > 2e-2:
         raise AssertionError("the recipe's bf16 train step differs from the plain path beyond "
                              "loss / grad_norm 2e-2 relative")
+    return counts
+
+
+def free_port() -> int:
+    """A free TCP port on this host, for a process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def graph_step_ms(trainer: Trainer, batch, reps: int = 6) -> tuple[list[float], float]:
+    """Host-clock ms of ``reps`` graph-replayed train steps from a fresh
+    state (the capture first, outside the time) and the peak device MiB
+    (the graph's pool included); the graph is freed after."""
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.capture_train_step(state, batch)
+    times = host_ms(lambda: trainer.train_step(state, batch), reps)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    state.graphs.clear()
+    return times, peak
+
+
+def running_stats(state) -> list[torch.Tensor]:
+    """Copies of the batch norm's running statistics."""
+    return [v.detach().clone() for k, v in state.params.items() if "running" in k]
+
+
+GLOO_STEPS = 2  # eager train steps of the two gloo ranks on the card
+GLOO_LR_STEPS = 4  # parameters held to this many learning rates (the CPU tests' limit)
+
+
+def _gloo_rank(rank: int, port: int, cfg: Config, out: str) -> None:
+    """One of two ranks of a gloo group on the one card: ``GLOO_STEPS``
+    eager train steps at B = 16 over the mesh (each rank its 8 rows), the
+    counters from 0 over them; saves losses, grad_norms, ms, the final
+    parameters and the counters to ``out``."""
+    device = torch.device("cuda:0")
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        trainer = Trainer(cfg, device, mesh=make_mesh(2, device))
+        batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                                device=device)
+        state = trainer.init_state(seed=0)
+        kernels.reset_launch_counts()
+        steps = []
+        with kernels.eager():
+            for _ in range(GLOO_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, loss, _, gnorm = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                steps.append((loss.item(), gnorm.item(), 1e3 * (time.perf_counter() - t0)))
+        torch.save({"steps": steps, "counts": kernels.launch_counts(),
+                    "params": {k: v.detach().cpu() for k, v in state.params.items()}},
+                   os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh(device, cfg: Config) -> dict[str, dict]:
+    """The mesh phase. (a) A NCCL group of one: the train step at B = 16,
+    its gradient all-reduce and batch reductions captured in its CUDA
+    graph, 3 replays (counters from 0) bitwise equal to the step without a
+    mesh; both timed, graph path, in turns. The eval step at B = 32 and
+    ``localize_sequence(mesh=)`` on 8 polar frames with the policy's mask,
+    bitwise equal to the calls without a mesh. (b) Two processes on the one
+    card over gloo, eager (gloo cannot be captured), B = 16 as 8 rows each:
+    ``GLOO_STEPS`` steps against one process's eager steps: losses within
+    the CPU tests' 1e-5 relative and parameters within their 4 learning
+    rates; grad_norms within 1e-3 relative. On the card the two runs'
+    forwards differ in the last bits (a batch of 8 against 16 through the
+    same kernels), and this gradient moves by 1e-3 of its max under a 1-ulp
+    nudge of its input (the train phase's ``check_unet_gradient``); on the
+    CPU, where the forwards agree bit for bit, two ranks give the one
+    process's grad_norm within 1e-7. K2, K3 and K4 launched on each rank.
+    No run on two
+    cards takes place: the machine holds one. Returns {"mesh": (a)'s
+    counters, "mesh_gloo": (b)'s, summed over the ranks}."""
+    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    batch32 = synthetic_batch(1, BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP), device=device)
+    plain = Trainer(cfg, device)  # before the group: the trivial mesh
+    want = train_chain(plain, batch, plain.init_state(seed=0))
+    params = plain.init_state(seed=0).params
+    spec = SyntheticSpec(network_input_type="polar", n_scan=N_SCAN, n_map=N_MAP)
+    frames_b = synthetic_batch(3, 8, spec, device=device)
+    frames = {"fft": frames_b["loc_data"]["fft_data"],
+              "azimuths": frames_b["loc_data"]["azimuths"],
+              "az_times": frames_b["loc_data"]["az_times"]}
+    map_pc, T0 = frames_b["map_data"]["pc"][0], frames_b["transforms"]["T_ml_init"]
+    loc_cfg = LocalizationConfig(beta=0.0)
+    loc_want = localization_pipeline.localize_sequence(
+        frames, map_pc, loc_cfg, T_inits=T0, batch_size=8, weight_policy=plain.policy,
+        policy_variables=params)
+    err_want, stats_want, _ = plain.eval_step(params, batch32)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0, device_id=device)
+    try:
+        mesh = make_mesh(1, device)
+        trainer = Trainer(cfg, device, mesh=mesh)
+        state = trainer.init_state(seed=0)
+        trainer.capture_train_step(state, batch)
+        (graph,) = state.graphs.values()
+        log("mesh", f"NCCL group of 1 ({mesh.backend}): captured the train step in "
+            f"{time.perf_counter() - t0:.2f} s, group set-up included; "
+            f"{sum(graph.step.launches.values())} kernel launches a replay")
+        kernels.reset_launch_counts()
+        got = train_chain(trainer, batch, state)
+        counts = kernels.launch_counts()
+        state.graphs.clear()
+        diff = bitwise(got, want)
+        log("mesh", f"{TRAIN_STEPS} graph steps over the mesh vs without it: bitwise equal "
+            f"{not diff} ({len(got)} tensors); launches {counts}")
+        if diff:
+            raise AssertionError(f"the NCCL world-1 train step differs from the step without "
+                                 f"a mesh at {diff}")
+        turns = {"no mesh": [], "mesh": []}
+        for _ in range(2):
+            for name, tr in (("no mesh", plain), ("mesh", trainer)):
+                turns[name] += graph_step_ms(tr, batch, reps=3)[0]
+        log("mesh", "graph train step B=16, host clock: " + "; ".join(
+            f"{name} {spread(t)}" for name, t in turns.items()))
+        err, stats, _ = trainer.eval_step(params, batch32)
+        same = torch.equal(err, err_want) and all(
+            torch.equal(a, b) for a, b in zip(stats, stats_want))
+        log("mesh", f"eval step B=32 over the mesh vs without it: errors and weight statistics "
+            f"bitwise equal {same} ({err.tolist()})")
+        loc = localization_pipeline.localize_sequence(
+            frames, map_pc, loc_cfg, T_inits=T0, batch_size=8, mesh=mesh,
+            weight_policy=trainer.policy, policy_variables=params)
+        loc_same = all(torch.equal(loc[k], loc_want[k]) for k in loc_want)
+        log("mesh", f"localize_sequence(mesh=) on 8 polar frames with the mask vs without a "
+            f"mesh: bitwise equal {loc_same}")
+        if not (same and loc_same):
+            raise AssertionError("the eval step or localize_sequence differs over the mesh")
+    finally:
+        dist.destroy_process_group()
+    del trainer, state, got, want
+
+    # (b) two gloo ranks on the one card, eager, against one process's eager steps.
+    with kernels.eager():
+        ref_state = plain.init_state(seed=0)
+        ref = [plain.train_step(ref_state, batch) for _ in range(GLOO_STEPS)]
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(_gloo_rank, args=(free_port(), cfg, tmp), nprocs=2, join=True,
+                           start_method="spawn")
+        seconds = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    lr = cfg.train.learning_rate
+    worst = {"loss": 0.0, "grad_norm": 0.0, "param": 0.0}
+    for rank in ranks:
+        for (loss, gnorm, _), (_, loss_1, _, gnorm_1) in zip(rank["steps"], ref):
+            worst["loss"] = max(worst["loss"], abs(loss - loss_1.item()) / abs(loss_1.item()))
+            worst["grad_norm"] = max(worst["grad_norm"],
+                                     abs(gnorm - gnorm_1.item()) / gnorm_1.item())
+        worst["param"] = max(worst["param"], max(
+            (rank["params"][k] - v.detach().cpu()).abs().max().item()
+            for k, v in ref_state.params.items()))
+    same_ranks = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])
+                     for k in ranks[0]["params"])
+    log("mesh_gloo", f"2 gloo ranks on one card, {GLOO_STEPS} eager steps of 8 rows each, "
+        f"{seconds:.1f} s with the processes' start: ms a step rank 0 "
+        f"{[round(t, 1) for *_, t in ranks[0]['steps']]}, rank 1 "
+        f"{[round(t, 1) for *_, t in ranks[1]['steps']]}; vs one process: loss rel "
+        f"{worst['loss']:.3e}, grad_norm rel {worst['grad_norm']:.3e}, parameters max |d| "
+        f"{worst['param']:.3e} (limit {GLOO_LR_STEPS} x lr = {GLOO_LR_STEPS * lr:.1e}); ranks' "
+        f"parameters bitwise equal {same_ranks}")
+    for r, rank in enumerate(ranks):
+        idle = [k for k in ("conv3x3", "conv3x3_dk", "nn_stripe") if rank["counts"][k] < 1]
+        log("mesh_gloo", f"rank {r} launches {rank['counts']}")
+        if idle:
+            raise AssertionError(f"gloo rank {r}: kernels that did not launch: {idle}")
+    if (worst["loss"] > 1e-5 or worst["grad_norm"] > 1e-3
+            or worst["param"] > GLOO_LR_STEPS * lr or not same_ranks):
+        raise AssertionError("two gloo ranks differ from one process beyond loss 1e-5, "
+                             "grad_norm 1e-3 relative, parameters 4 learning rates")
+    gloo = {k: ranks[0]["counts"][k] + ranks[1]["counts"][k] for k in counts}
+    return {"mesh": counts, "mesh_gloo": gloo}
+
+
+def run_bn(device, cfg: Config) -> dict[str, dict]:
+    """The bn phase: ``model.batch_norm=True`` at full width, B = 16, in
+    float32 and bfloat16: the train step captured (the running statistics
+    updated in place inside the graph), 3 replays with the counters from 0,
+    each against an eager kernel-path step from its state (the train
+    phase's limits); two graph chains of 3 steps bitwise equal, running
+    statistics included, and the eager chain's statistics logged against
+    them; the graph step's ms and peak MiB beside the same step without
+    batch norm. Returns {label: the replays' counters}."""
+    batch = synthetic_batch(2, TRAIN_BATCH, SyntheticSpec(n_scan=N_SCAN, n_map=N_MAP),
+                            device=device)
+    out = {}
+    for label, dtype in (("bn", "float32"), ("bn_bf16", "bfloat16")):
+        base = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=dtype))
+        trainer = Trainer(dataclasses.replace(base, model=dataclasses.replace(
+            base.model, batch_norm=True)), device)
+        stats0 = running_stats(trainer.init_state(seed=0))
+        state, _, steps, snaps, counts = captured_steps(trainer, batch, label)
+        stats = running_stats(state)
+        moved = min((a - b).abs().max().item() for a, b in zip(stats, stats0))
+        if not (moved > 0 and all(torch.isfinite(t).all() for t in stats)):
+            raise AssertionError(f"{label}: running statistics not updated in the graph")
+        state.graphs.clear()
+        check_replays(trainer, batch, steps, snaps, label)
+        chains = []
+        for path in ("graph", "graph", "eager"):
+            with PATHS[path]():
+                st = trainer.init_state(seed=0)
+                chains.append(train_chain(trainer, batch, st) + running_stats(st))
+                st.graphs.clear()
+        diff = bitwise(chains[0], chains[1])
+        n = len(stats)
+        d_stats = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                      for a, b in zip(chains[0][-n:], chains[2][-n:]))
+        log(label, f"two graph chains of {TRAIN_STEPS} steps bitwise equal {not diff} "
+            f"({len(chains[0])} tensors, {n} running statistics); eager chain's running "
+            f"statistics vs the graph's: max rel {d_stats:.3e}")
+        if diff:
+            raise AssertionError(f"{label}: graph chains differ at {diff}")
+        t_bn, peak_bn = graph_step_ms(trainer, batch)
+        t_0, peak_0 = graph_step_ms(Trainer(base, device), batch)
+        log(label, f"graph train step B=16 {dtype}, host clock: batch norm {spread(t_bn)}, "
+            f"peak {peak_bn:.0f} MiB; without {spread(t_0)}, peak {peak_0:.0f} MiB")
+        out[label] = counts
+        del trainer, state, steps, snaps, chains
+        gc.collect()
+    return out
+
+
+_DEPLOY_RUN = r"""
+import json, statistics, sys, time
+import numpy as np, torch
+from mm_masking_tpu_torch.deploy import load_localizer, load_mask_policy
+from mm_masking_tpu_torch.ops import kernels
+
+tmp = sys.argv[1]
+mask_call, mask_hdr = load_mask_policy(tmp + "/policy.mmx")
+loc_call, loc_hdr = load_localizer(tmp + "/localizer.mmx")
+fft, az = (torch.from_numpy(np.load(f"{tmp}/{k}.npy")).cuda() for k in ("fft", "az"))
+loc = [torch.from_numpy(np.load(f"{tmp}/{k}.npy")).cuda() for k in ("pc", "map", "T0", "w")]
+
+
+def ms(fn, frames):
+    fn()
+    out = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0) / frames)
+    return statistics.median(out)
+
+
+kernels.reset_launch_counts()
+masks = [mask_call(fft[:1], az[:1]), mask_call(fft, az)]
+T, ratio, ok = loc_call(*loc)
+torch.cuda.synchronize()
+counts = kernels.launch_counts()
+np.save(tmp + "/mask1.npy", masks[0].cpu().numpy())
+np.save(tmp + "/mask8.npy", masks[1].cpu().numpy())
+np.save(tmp + "/T.npy", T.cpu().numpy())
+np.save(tmp + "/ratio.npy", ratio.cpu().numpy())
+np.save(tmp + "/ok.npy", ok.cpu().numpy())
+print(json.dumps({"counts": counts,
+                  "custom_ops": [mask_hdr["custom_ops"], loc_hdr["custom_ops"]],
+                  "mask_ms": ms(lambda: mask_call(fft, az), 8),
+                  "loc_ms": ms(lambda: loc_call(*loc), 8)}))
+"""
+
+
+# The exported localizer's refined iterations: torch.export traces each one
+# (about 4 s an iteration on the H100 machine's host, with a symbolic batch),
+# so the phase exports 10 of the default 50.
+DEPLOY_REFINED_ITERS = 10
+
+
+def run_deploy(device, run_dir: str, smi: str) -> dict:
+    """The deploy phase: the e2e phase's run (bf16, 400 x 3360 polar scans
+    → 640^2 mask) exported on the card, and the localizer at N = 4096, M =
+    16384 with a symbolic batch (``DEPLOY_REFINED_ITERS`` refined
+    iterations); both loaded in a fresh process, which
+    runs the mask at B = 1 and B = 8 of polar frames and the localizer at
+    B = 8 with the counters from 0: each bitwise equal to the direct call
+    in this process (``mask_for_scan``, ``localize_clouds``), K2 (bf16) and
+    K1 launched. The export seconds and ms a frame, artifact against
+    direct, logged. Returns the loaded artifacts' counters."""
+    spec = SyntheticSpec(network_input_type="polar", n_scan=N_SCAN, n_map=N_MAP)
+    b = synthetic_batch(4, 8, spec, device=device)
+    fft, az = b["loc_data"]["fft_data"], b["loc_data"]["azimuths"]
+    pc = b["loc_data"]["filtered_pc"][..., :3].contiguous()
+    w = (~((pc[..., 0] == 0.0) & (pc[..., 1] == 0.0))).float()
+    loc = (pc, b["map_data"]["pc"], b["transforms"]["T_ml_init"], w)
+    loc_cfg = LocalizationConfig(beta=0.0, refined_max_iter=DEPLOY_REFINED_ITERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        payload, header = export_from_run_dir(run_dir, platforms=["cuda"])
+        mask_s = time.perf_counter() - t0
+        write_artifact(os.path.join(tmp, "policy.mmx"), payload, header)
+        t0 = time.perf_counter()
+        lpayload, lheader = export_localizer(loc_cfg, n_points=N_SCAN, n_map=N_MAP,
+                                             platforms=["cuda"])
+        loc_s = time.perf_counter() - t0
+        write_artifact(os.path.join(tmp, "localizer.mmx"), lpayload, lheader)
+        log("deploy", f"exported the e2e run's mask policy ({header['custom_ops']}, "
+            f"{len(payload) / 1e6:.2f} MB) in {mask_s:.1f} s and the localizer "
+            f"({lheader['custom_ops']}, {len(lpayload) / 1e6:.2f} MB) in {loc_s:.1f} s")
+        for name, t in (("fft", fft), ("az", az), ("pc", loc[0]), ("map", loc[1]),
+                        ("T0", loc[2]), ("w", loc[3])):
+            np.save(os.path.join(tmp, f"{name}.npy"), t.cpu().numpy())
+        run = subprocess.run([sys.executable, "-c", _DEPLOY_RUN, tmp], capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"the artifacts' process failed:\n{run.stderr[-4000:]}")
+        res = json.loads(run.stdout.strip().splitlines()[-1])
+        got = {k: np.load(os.path.join(tmp, f"{k}.npy"))
+               for k in ("mask1", "mask8", "T", "ratio", "ok")}
+    cfg = Config.from_dict(json.load(open(os.path.join(run_dir, "config.json"))))
+    policy = LearnICPWeightPolicy(cfg, device)
+    params = load_policy_variables(run_dir, "best_policy", map_location=device)
+    with torch.no_grad():
+        want = {"mask1": policy.mask_for_scan(params, fft[:1], az[:1]),
+                "mask8": policy.mask_for_scan(params, fft, az)}
+    ref = localization_pipeline.localize_clouds(*loc[:3], loc_cfg, weights=loc[3])
+    want.update(T=ref["T"], ratio=ref["matched_ratio"], ok=ref["ok"])
+    equal = {k: bool(np.array_equal(got[k], want[k].cpu().numpy())) for k in want}
+    direct_mask = statistics.median(host_ms(lambda: policy.mask_for_scan(params, fft, az))) / 8
+    direct_loc = statistics.median(host_ms(
+        lambda: localization_pipeline.localize_clouds(*loc[:3], loc_cfg, weights=loc[3]))) / 8
+    counts = res["counts"]
+    log("deploy", f"loaded in a fresh process: bitwise equal to the direct calls {equal}; "
+        f"launches {counts}; ms a frame at B=8, artifact vs direct: mask "
+        f"{res['mask_ms']:.3f} vs {direct_mask:.3f}, localizer {res['loc_ms']:.3f} vs "
+        f"{direct_loc:.3f} (host clock, median of 3) on {smi}")
+    if not all(equal.values()):
+        raise AssertionError(f"the loaded artifacts differ from the direct calls: {equal}")
+    if counts["conv3x3"] < 1 or counts["nn_argmin"] < 1:
+        raise AssertionError("the loaded artifacts did not launch K2 and K1")
     return counts
 
 
@@ -2676,6 +3067,12 @@ def main() -> int:
     bf16_counts, train_bf16 = run_train_bf16(device, cfg)
     run_determinism(device, cfg)
     t0 = time.perf_counter()
+    mesh_counts = run_mesh(device, cfg)
+    log("mesh", f"phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bn_counts = run_bn(device, cfg)
+    log("bn", f"phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     implicit_counts = run_implicit(device, cfg)
     log("implicit", f"phase: {time.perf_counter() - t0:.1f} s")
     data_counts = run_data(device, cfg)
@@ -2685,8 +3082,15 @@ def main() -> int:
     loc_counts = {k: loc_counts[k] + cli_counts[k] for k in loc_counts}
     log("localize", f"phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    e2e_counts = run_e2e(device, smi)
-    log("e2e", f"phase: {time.perf_counter() - t0:.1f} s")
+    keep = tempfile.mkdtemp()
+    try:
+        e2e_counts = run_e2e(device, smi, keep)
+        log("e2e", f"phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        deploy_counts = run_deploy(device, keep, smi)
+        log("deploy", f"phase: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     polar_counts, polar = run_polar(device, cfg)
     t0 = time.perf_counter()
     ct_counts, ct = run_ct_ransac(device, cfg, smi)
@@ -2733,7 +3137,8 @@ def main() -> int:
               **refresh_counts, "train": train_counts, "train_bf16": bf16_counts,
               **implicit_counts, "data": data_counts, "localize": loc_counts,
               "localize_bf16": loc_bf16_counts, "e2e": e2e_counts, **polar_counts,
-              **ct_counts, "probes": probe_counts}
+              **ct_counts, "probes": probe_counts, **mesh_counts, **bn_counts,
+              "deploy": deploy_counts}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

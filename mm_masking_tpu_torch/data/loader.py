@@ -22,6 +22,7 @@ import torch
 
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.ops import radar_polar_to_cartesian
+from mm_masking_tpu_torch.parallel.mesh import ShardedBatch, shard_batch
 
 
 def _collate(items: list[dict]) -> dict:
@@ -87,8 +88,16 @@ def epoch_batches(
     seed: int = 0,
     prefetch: int = 1,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> Iterator[dict]:
     """Yield preprocessed batches for one epoch, as tensors on ``device``.
+
+    With a ``mesh`` every rank loads and collates the same global batches
+    (the same items, and the same draws of the dataset's augmentation
+    generator, as one device), then keeps its rows
+    (:func:`~mm_masking_tpu_torch.parallel.shard_batch`), moves and
+    preprocesses only them, and yields a ``ShardedBatch``; a batch whose
+    size does not divide the mesh is kept whole.
 
     With ``prefetch > 0`` (default 1) a single worker thread loads and
     collates batch k+1 while the caller's step k runs. Exactly ONE worker, so
@@ -108,7 +117,11 @@ def epoch_batches(
             yield _collate([dataset[int(i)] for i in idx])
 
     def finish(batch: dict) -> dict:
-        return preprocess_batch(to_tensors(batch, device), config)
+        if mesh is None:
+            return preprocess_batch(to_tensors(batch, device), config)
+        rows = shard_batch(batch, mesh)
+        out = preprocess_batch(to_tensors(rows, device), config)
+        return ShardedBatch(out, rows.start, rows.total) if isinstance(rows, ShardedBatch) else out
 
     if prefetch <= 0:
         for batch in produce():

@@ -33,7 +33,14 @@ chunk's iterations change nothing once every item has stopped, so the
 result is that of a test after every iteration. On the card a chunk is a
 CUDA graph, captured once per configuration and shape and replayed
 (:mod:`mm_masking_tpu_torch.graphs`); the training solve is part of the
-train step's graph.
+train step's graph. Under ``torch.export`` the inference loop runs all
+``max_iterations`` with no read of the stop test (the same result, as
+the chunks after the stop change nothing), so a localizer can be exported.
+
+Under a mesh (``mesh=``, the batch sharded over ranks) the items solve on
+their own rank; only the motion-gated loop couples them, through its
+largest stop magnitude, which it then takes over the mesh, and its stop
+test, which every rank then reads from the mesh.
 """
 from __future__ import annotations
 
@@ -239,8 +246,11 @@ def _gn_step(
     if cfg.icp_type == "pt2pl":
         n = torch.where(active[..., None], n, 0.0)
         J = torch.cat([n, torch.linalg.cross(p, n, dim=-1)], dim=-1)  # (B, N, 6)
-        A = torch.einsum("bni,bnj,bn->bij", J, J, w)
-        b = -torch.einsum("bni,bn,bn->bi", J, r, w)
+        # Pairwise, in opt_einsum's order for three operands (the weight into
+        # the second first): one order on every device and batch, symbolic
+        # ones under torch.export included.
+        A = torch.einsum("bni,bnj->bij", J, J * w[..., None])
+        b = -torch.einsum("bni,bn->bi", J, r * w)
     else:
         # J_i = [I | -p^]; closed-form blocks of Σ w JᵀJ and Σ w Jᵀr.
         ph = _hat(p)
@@ -306,6 +316,7 @@ def icp(
     weight: torch.Tensor | None = None,
     cfg: ICPConfig = ICPConfig(),
     T_prior: torch.Tensor | None = None,
+    mesh=None,
 ) -> dict[str, Any]:
     """Run the batched ICP.
 
@@ -317,6 +328,8 @@ def icp(
     'stop_tests' (int, the host's reads of the stop test)}.
     ``cfg.remat_iters`` is a memory knob of the JAX package and is ignored,
     and the differentiable solve ignores ``cfg.nn_refresh_dist``, as JAX's.
+    ``mesh``: the batch is this rank's rows of a batch sharded over the
+    mesh; the motion-gated solve then reduces over it (module docstring).
     """
     inp, stripe = _prepare(source, target, T_init, weight, cfg, T_prior)
     if cfg.differentiable:
@@ -327,7 +340,7 @@ def icp(
             norms.append(torch.linalg.vector_norm(delta, dim=-1))
         return {"T": T, "delta_norms": torch.stack(norms)}
     with torch.no_grad():  # the tolerance-stopped solve has no gradient, as in JAX
-        return _solve_to_tolerance(inp, T_init, cfg, stripe)
+        return _solve_to_tolerance(inp, T_init, cfg, stripe, mesh)
 
 
 def _prepare(source, target, T_init, weight, cfg: ICPConfig, T_prior=None
@@ -385,7 +398,7 @@ def _associate(inp: dict, p: torch.Tensor, cfg: ICPConfig, stripe: bool,
         tn=cfg.nn_stripe_tile, q4=inp["q4"], refresh=refresh)[0]
 
 
-def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
+def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int, mesh=None) -> None:
     """n iterations of the tolerance-stopped solve, in place on its state
     ``st`` (T, dn, idx, moved, done = iterations taken, iterations = those
     in which the solve ran); with ``cfg.nn_refresh_dist > 0`` the gated
@@ -394,7 +407,7 @@ def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
     ``max_iterations`` have been taken; a stopped item keeps T, dn and idx,
     so an iteration in which no item runs changes nothing but ``done``."""
     if cfg.nn_refresh_dist > 0.0:
-        _iterate_gated(st, inp, cfg, stripe, n)
+        _iterate_gated(st, inp, cfg, stripe, n, mesh)
         return
     step_args = _step_args(inp, cfg)
     for _ in range(n):
@@ -412,7 +425,8 @@ def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
         st["done"].add_(1)
 
 
-def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) -> None:
+def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int,
+                   mesh=None) -> None:
     """n iterations of the motion-gated solve (JAX ``icp.py:584-645``). The
     solve runs while the largest stop magnitude is at least the tolerance
     and fewer than ``max_iterations`` have been taken (``go``, a scalar on
@@ -422,11 +436,15 @@ def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int) ->
     ``moved`` reaches ``nn_refresh_dist``; the others keep their cached idx
     (the stripe call gives them no blocks; the dense search runs for all
     and the select drops it). Once ``go`` is false no item searches and
-    nothing changes but ``done``."""
+    nothing changes but ``done``. Under a ``mesh`` the largest stop
+    magnitude is the global batch's."""
     step_args = _step_args(inp, cfg)
     for _ in range(n):
         T = st["T"]
-        go = (st["done"] < cfg.max_iterations) & (st["dn"].amax() >= cfg.tolerance)
+        dn_max = st["dn"].amax()
+        if mesh is not None:
+            dn_max = mesh.max(dn_max)
+        go = (st["done"] < cfg.max_iterations) & (dn_max >= cfg.tolerance)
         need = go & ((st["done"] == 0) | (st["moved"] >= cfg.nn_refresh_dist))
         idx_new = _associate(inp, transform_points(T, inp["source"]), cfg, stripe, need)
         st["idx"].copy_(torch.where(need[:, None], idx_new, st["idx"]))
@@ -467,7 +485,8 @@ _CHUNKS: dict = {}
 
 
 def solve_in_chunks(key, inp: dict, device: torch.device, max_iterations: int,
-                    tolerance: float, new_state, start, iterate) -> tuple[dict, int, bool]:
+                    tolerance: float, new_state, start, iterate, mesh=None
+                    ) -> tuple[dict, int, bool]:
     """The loop of a tolerance-stopped solve: chunks of ``STOP_TEST_EVERY``
     iterations (``iterate(st, inp, k)``, which must change nothing once the
     solve has stopped), the stop test (any ``st["dn"]`` ≥ tolerance) read
@@ -476,7 +495,9 @@ def solve_in_chunks(key, inp: dict, device: torch.device, max_iterations: int,
     copies of ``inp`` and of the state (``new_state()``, a started state;
     ``start(st)`` restarts it). Returns (the state, the stop-test reads,
     whether the state is the graph's static one, which the next solve of
-    this key overwrites)."""
+    this key overwrites). With a ``mesh`` the stop test is the mesh's
+    (whether any rank's item runs), so every rank runs the same chunks, as
+    an ``iterate`` that reduces over the mesh needs."""
     k = max(1, min(STOP_TEST_EVERY, max_iterations))
     n_chunks = -(-max(max_iterations, 0) // k)
     graphs = use_graphs(device) and n_chunks > 0
@@ -506,19 +527,30 @@ def solve_in_chunks(key, inp: dict, device: torch.device, max_iterations: int,
         if c + 1 == n_chunks:
             break
         stop_tests += 1
-        if not bool((st["dn"] >= tolerance).any()):
+        running = (st["dn"] >= tolerance).any()
+        if mesh is not None:
+            running = mesh.any(running)
+        if not bool(running):
             break
     return st, stop_tests, graphs
 
 
 def _solve_to_tolerance(inp: dict, T_init: torch.Tensor, cfg: ICPConfig,
-                        stripe: bool) -> dict[str, Any]:
+                        stripe: bool, mesh=None) -> dict[str, Any]:
     """The inference solve, in chunks (:func:`solve_in_chunks`). The result
-    equals a loop that tests after every iteration."""
+    equals a loop that tests after every iteration. Under ``torch.export``
+    all ``max_iterations`` run, with no read of the stop test."""
+    if torch.compiler.is_exporting():
+        st = _new_state(T_init, inp["source"].shape[1])
+        _iterate(st, inp, cfg, stripe, cfg.max_iterations)
+        return {"T": st["T"], "iterations": st["iterations"], "delta_norm": st["dn"],
+                "stop_tests": 0}
+    gated = mesh if cfg.nn_refresh_dist > 0.0 else None  # only it reduces over the mesh
     st, stop_tests, graphs = solve_in_chunks(
-        (cfg, stripe, T_init.shape, T_init.dtype), inp, T_init.device, cfg.max_iterations,
-        cfg.tolerance, lambda: _new_state(T_init, inp["source"].shape[1]),
-        lambda st: _start(st, T_init), lambda st, inp, n: _iterate(st, inp, cfg, stripe, n))
+        (cfg, stripe, T_init.shape, T_init.dtype, gated is not None), inp, T_init.device,
+        cfg.max_iterations, cfg.tolerance, lambda: _new_state(T_init, inp["source"].shape[1]),
+        lambda st: _start(st, T_init),
+        lambda st, inp, n: _iterate(st, inp, cfg, stripe, n, gated), mesh=gated)
     out = {"T": st["T"], "iterations": st["iterations"], "delta_norm": st["dn"]}
     if graphs:  # the next solve of this shape overwrites the static state
         out = {name: t.clone() for name, t in out.items()}
@@ -535,7 +567,7 @@ def _solve_to_tolerance(inp: dict, T_init: torch.Tensor, cfg: ICPConfig,
 # ---------------------------------------------------------------------------
 
 
-def _solve_frozen(source, target, T_init, weight, cfg: ICPConfig) -> torch.Tensor:
+def _solve_frozen(source, target, T_init, weight, cfg: ICPConfig, mesh=None) -> torch.Tensor:
     """The tolerance-stopped solve's pose with no read of the device: all
     ``max_iterations`` iterations run, each item frozen on the device once
     it stops (:func:`_iterate`), so the result is the host-tested solve's
@@ -543,7 +575,7 @@ def _solve_frozen(source, target, T_init, weight, cfg: ICPConfig) -> torch.Tenso
     train step."""
     inp, stripe = _prepare(source, target, T_init, weight, cfg)
     st = _new_state(T_init, inp["source"].shape[1])
-    _iterate(st, inp, cfg, stripe, cfg.max_iterations)
+    _iterate(st, inp, cfg, stripe, cfg.max_iterations, mesh)
     return st["T"]
 
 
@@ -596,15 +628,16 @@ class _ICPImplicit(torch.autograd.Function):
     ``_icp_implicit_bwd``, the gradient of the weight only."""
 
     @staticmethod
-    def forward(ctx, source, target, T_init, weight, cfg):
-        T = _solve_frozen(source, target, T_init, weight, cfg)
+    def forward(ctx, source, target, T_init, weight, cfg, mesh):
+        T = _solve_frozen(source, target, T_init, weight, cfg, mesh)
         ctx.cfg = cfg
         ctx.save_for_backward(source, target, T, weight)
         return T
 
     @staticmethod
     def backward(ctx, dT):
-        return None, None, None, _implicit_weight_grad(*ctx.saved_tensors, dT, ctx.cfg), None
+        return (None, None, None, _implicit_weight_grad(*ctx.saved_tensors, dT, ctx.cfg), None,
+                None)
 
 
 def _implicit_weight_grad(source, target, T, weight, dT, cfg: ICPConfig) -> torch.Tensor:
@@ -623,13 +656,13 @@ def _implicit_weight_grad(source, target, T, weight, dT, cfg: ICPConfig) -> torc
 
 
 def icp_implicit(source: torch.Tensor, target: torch.Tensor, T_init: torch.Tensor,
-                 weight: torch.Tensor, cfg: ICPConfig) -> torch.Tensor:
+                 weight: torch.Tensor, cfg: ICPConfig, mesh=None) -> torch.Tensor:
     """Converged ICP pose (B, 4, 4) with implicit-function-theorem
     gradients w.r.t. ``weight`` (B, N); none reach source, target or T_init.
     The solve is ``cfg``'s, non-differentiable, to tolerance or
     ``max_iterations``, run with no host read (:func:`_solve_frozen`)."""
     return _ICPImplicit.apply(source, target, T_init, weight,
-                              dataclasses.replace(cfg, differentiable=False))
+                              dataclasses.replace(cfg, differentiable=False), mesh)
 
 
 class ICP:

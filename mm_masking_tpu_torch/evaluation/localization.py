@@ -3,9 +3,11 @@
 
 Every frame of every sequence is an independent scan → map localization
 problem, so a sequence's batches are solved one after another on one
-device. Error statistics mirror ``eval_validation_loss``
-(``train_icp_weights.py:255-273``) plus the RMSE and per-frame breakdown of
-the reference's offline ``utils/extract_*_gt.py`` scripts.
+device, or, through a trainer with a mesh, each batch sharded over the
+mesh's cards, every rank gathering the per-frame errors. Error statistics
+mirror ``eval_validation_loss`` (``train_icp_weights.py:255-273``) plus the
+RMSE and per-frame breakdown of the reference's offline
+``utils/extract_*_gt.py`` scripts.
 """
 from __future__ import annotations
 
@@ -121,20 +123,22 @@ def evaluate_policy_on_sequences(
 ) -> dict[str, SequenceErrors]:
     """Config-5 entry: learned-mask localization over several sequences,
     streamed one batch at a time through the trainer's policy on its
-    device (``state``: a ``TrainState``)."""
-    from mm_masking_tpu_torch.train.trainer import to_device
-
+    device (``state``: a ``TrainState``). Under the trainer's mesh each
+    batch is sharded over it (the JAX package's sharded sweep) and every
+    rank returns the whole sequences' errors."""
     results = {}
     for name, batches_fn in sequences.items():
         rots, trans = [], []
         for batch in batches_fn():
-            batch = to_device(batch, trainer.device)
+            batch, mesh, _ = trainer.local_batch(batch)
             with torch.inference_mode():
                 out = trainer.policy.apply(
                     state.params, batch["loc_data"], batch["map_data"],
-                    batch["transforms"]["T_ml_init"], train=False, binary=binary)
+                    batch["transforms"]["T_ml_init"], train=False, binary=binary, mesh=mesh)
                 r, t = frame_errors(out.T_pred, batch["transforms"]["T_ml_gt"],
                                     gt_eye=trainer.cfg.model.gt_eye)
+                if mesh is not None:
+                    r, t = mesh.gather(r), mesh.gather(t)
             rots.append(r.cpu().numpy())
             trans.append(t.cpu().numpy())
         results[name] = summarize(np.concatenate(rots), np.concatenate(trans))

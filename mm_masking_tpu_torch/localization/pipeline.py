@@ -13,7 +13,9 @@ tolerance-stopped solve: on the card chunks of ``STOP_TEST_EVERY``
 iterations replayed from CUDA graphs, with one read of the stop test per
 chunk. Whole sequences run in chunks of ``batch_size`` frames, padded with
 the last frame; the results stay on the device until the one concatenation
-at the end.
+at the end. Over a mesh of cards (``mesh=``) each rank localizes its rows
+of every chunk and gathers the chunk's results, so every rank returns the
+whole sequence's, as the call without a mesh does.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from mm_masking_tpu_torch.localization.odometry import orthonormalize_planar
 from mm_masking_tpu_torch.ops import extract_pc, extract_weights
 from mm_masking_tpu_torch.ops.detectors import detect, doppler_shift, motion_undistort
 from mm_masking_tpu_torch.ops.kernels.nn_assoc import nn_argmin
+from mm_masking_tpu_torch.parallel.mesh import Mesh, shard_axis
 
 _FRAME_KEYS = ("fft", "azimuths", "az_times")
 
@@ -141,11 +144,17 @@ def localize_frame(fft: torch.Tensor, azimuths: torch.Tensor, az_times: torch.Te
                            yaw_rate=yaw_rate, weights=weights)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "localizing over a mesh of cards (mesh=) is not ported yet: ROADMAP.md queue 1 "
-            "item 16")
+def _chunk_mesh(mesh: Mesh | None, batch_size: int) -> Mesh | None:
+    """The mesh a chunk of ``batch_size`` frames is sharded over: None (every
+    rank localizes the whole chunk) without one, or where the chunk does not
+    divide it."""
+    if mesh is None or mesh.group is None or not mesh.divides(batch_size):
+        return None
+    return mesh
+
+
+def _gather(out: dict, mesh: Mesh | None) -> dict:
+    return out if mesh is None else {k: mesh.gather(v) for k, v in out.items()}
 
 
 def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -220,23 +229,29 @@ def localize_sequence(frames, map_pc: torch.Tensor,
     the chunk's padding frames, as the JAX package's does) and weights the
     ICP with the mask. Returns the stacked results of :func:`localize_frame`
     over all F frames.
+
+    ``mesh`` (a :class:`~mm_masking_tpu_torch.parallel.Mesh` on the map's
+    device): each rank localizes its rows of every chunk (the mask's
+    normalisation over the whole chunk) and every rank returns the whole
+    result; a ``batch_size`` that does not divide the mesh runs every chunk
+    whole on every rank.
     """
-    _refuse_mesh(mesh)
     dev = map_pc.device
     frames = _stack_frames(frames, dev)
     F = frames["fft"].shape[0]
     T_inits = _eye_inits(F, dev) if T_inits is None else _tensor(T_inits, dev)
-    map_b = _map_batch(map_pc, batch_size)
+    mesh = _chunk_mesh(mesh, batch_size)
+    map_b = _map_batch(map_pc, batch_size // (mesh.size if mesh else 1))
     mask_kw = _mask_kw(weight_policy)
     outs = []
     with torch.no_grad():
-        for fft, az, azt, T0 in _chunks([frames[k] for k in _FRAME_KEYS] + [T_inits], F,
-                                        batch_size):
+        for chunk in _chunks([frames[k] for k in _FRAME_KEYS] + [T_inits], F, batch_size):
+            fft, az, azt, T0 = (shard_axis(x, mesh, 0) for x in chunk) if mesh else chunk
             wm = None
             if weight_policy is not None:
-                wm = weight_policy.mask_for_scan(policy_variables, fft, az)
-            outs.append(localize_frame(fft, az, azt, map_b, T0, cfg=cfg, weight_mask=wm,
-                                       **mask_kw))
+                wm = weight_policy.mask_for_scan(policy_variables, fft, az, mesh=mesh)
+            outs.append(_gather(localize_frame(fft, az, azt, map_b, T0, cfg=cfg,
+                                               weight_mask=wm, **mask_kw), mesh))
     return _concat(outs, F)
 
 
@@ -245,15 +260,18 @@ def localize_cloud_sequence(clouds, map_pc: torch.Tensor,
                             batch_size: int = 8, mesh=None) -> dict[str, torch.Tensor]:
     """Localize a sequence of extracted clouds (F, N, 3), zero-padded,
     against one map (M, 3|6) or (1, M, 3|6), in chunks as
-    :func:`localize_sequence`; a 3-column map gets zero normals (pt2pt)."""
-    _refuse_mesh(mesh)
+    :func:`localize_sequence`; a 3-column map gets zero normals (pt2pt).
+    ``mesh``: as in :func:`localize_sequence`."""
     dev = map_pc.device
     clouds = _tensor(clouds, dev)
     F = clouds.shape[0]
     T_inits = _eye_inits(F, dev) if T_inits is None else _tensor(T_inits, dev)
-    map_b = _map_batch(map_pc, batch_size)
-    outs = [localize_clouds(pc, map_b, T0, cfg=cfg)
-            for pc, T0 in _chunks([clouds, T_inits], F, batch_size)]
+    mesh = _chunk_mesh(mesh, batch_size)
+    map_b = _map_batch(map_pc, batch_size // (mesh.size if mesh else 1))
+    outs = []
+    for chunk in _chunks([clouds, T_inits], F, batch_size):
+        pc, T0 = (shard_axis(x, mesh, 0) for x in chunk) if mesh else chunk
+        outs.append(_gather(localize_clouds(pc, map_b, T0, cfg=cfg), mesh))
     return _concat(outs, F)
 
 
@@ -308,11 +326,14 @@ def localize_sequence_to_traj(frames, map_pc: torch.Tensor, times_us, out_path: 
                               policy_variables=None) -> dict[str, torch.Tensor]:
     """:func:`localize_sequence`, then a trajectory file for
     ``evaluation.gt_tools.eval_localization_run``: the solver's T maps scan
-    to map (T_map_loc); the rows carry T_loc_map."""
+    to map (T_map_loc); the rows carry T_loc_map. Under a ``mesh`` rank 0
+    writes the file."""
     from mm_masking_tpu_torch.evaluation.gt_tools import write_traj_file
 
     out = localize_sequence(frames, map_pc, cfg=cfg, T_inits=T_inits, batch_size=batch_size,
                             mesh=mesh, weight_policy=weight_policy,
                             policy_variables=policy_variables)
-    write_traj_file(out_path, list(se3_inv(out["T"]).cpu().numpy()), [int(t) for t in times_us])
+    if mesh is None or mesh.rank == 0:
+        write_traj_file(out_path, list(se3_inv(out["T"]).cpu().numpy()),
+                        [int(t) for t in times_us])
     return out

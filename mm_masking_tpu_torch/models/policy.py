@@ -25,6 +25,7 @@ from torch.func import functional_call
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.dicp import ICPConfig, icp, icp_implicit
 from mm_masking_tpu_torch.models.unet import UNet
+from mm_masking_tpu_torch.parallel.mesh import Mesh
 from mm_masking_tpu_torch.ops import (
     cfar_mask,
     extract_weights,
@@ -140,9 +141,13 @@ class LearnICPWeightPolicy:
 
     def compute_mask(self, params: dict, fft_data: torch.Tensor,
                      fft_cfar: torch.Tensor | None, *, train: bool = False,
-                     generator: torch.Generator | None = None) -> torch.Tensor:
+                     generator: torch.Generator | None = None, mesh: Mesh | None = None,
+                     rows: tuple[int, int] | None = None) -> torch.Tensor:
         """Assemble input channels → batch-global normalisation → UNet → (B, H, W).
-        ``train``: dropout from ``generator``."""
+        ``train``: dropout from ``generator``. ``mesh``: the batch is this
+        rank's rows ``rows`` = (first row, global rows) of a batch sharded
+        over the mesh; the normalisation's statistics, the batch norm's and
+        the dropout masks are the global batch's."""
         m = self.cfg.model
         chans = []
         if m.fft_input:
@@ -154,22 +159,34 @@ class LearnICPWeightPolicy:
         x = torch.stack(chans, dim=1)  # (B, C, H, W)
         if m.log_transform:
             x = torch.log(x + 1e-6)
-        # Statistics over the whole batch per channel; denominators floored
-        # so that a constant channel normalises to 0 instead of NaN.
+        # Statistics over the whole batch per channel (over every rank's rows
+        # under a mesh; the input's, so no gradient passes through them);
+        # denominators floored so that a constant channel normalises to 0
+        # instead of NaN.
         if "minmax" in m.normalize:
             c_max = x.amax(dim=(0, 2, 3), keepdim=True)
             c_min = x.amin(dim=(0, 2, 3), keepdim=True)
+            if mesh is not None:
+                c_max, c_min = mesh.max(c_max), mesh.min(c_min)
             x = (x - c_min) / torch.clamp(c_max - c_min, min=1e-30)
         elif "standardize" in m.normalize:
-            c_mean = x.mean(dim=(0, 2, 3), keepdim=True)
-            c_std = x.std(dim=(0, 2, 3), correction=1, keepdim=True)
+            if mesh is None:
+                c_mean = x.mean(dim=(0, 2, 3), keepdim=True)
+                c_std = x.std(dim=(0, 2, 3), correction=1, keepdim=True)
+            else:  # the global count, sum, then sum of squared deviations
+                with torch.no_grad():
+                    n = x[:, 0].numel() * mesh.size
+                    c_mean = mesh.sum(x.sum(dim=(0, 2, 3), keepdim=True)) / n
+                    dev2 = mesh.sum(((x - c_mean) ** 2).sum(dim=(0, 2, 3), keepdim=True))
+                    c_std = torch.sqrt(dev2 / (n - 1))
             x = (x - c_mean) / torch.clamp(c_std, min=1e-30)
         mask = functional_call(self.unet, params, (x.to(m.torch_dtype),),
-                               {"train": train, "generator": generator})
+                               {"train": train, "generator": generator, "mesh": mesh,
+                                "rows": rows})
         return mask  # float32: the UNet head computes in float32
 
     def mask_for_scan(self, params: dict, fft_polar: torch.Tensor,
-                      azimuths: torch.Tensor) -> torch.Tensor:
+                      azimuths: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         """(B, A, R) raw polar power and (B, A) azimuths → (B, Wc, Wc)
         cartesian weight mask, ready for :func:`extract_weights` at the scan
         points: the CFAR channel (when configured) and, for a cartesian
@@ -177,7 +194,8 @@ class LearnICPWeightPolicy:
         :meth:`compute_mask`, the per-image max normalisation
         (``norm_weights``), ``binary_inference`` and, for a polar network
         output, the mask's warp to cartesian. The normalisation's statistics
-        are over the frames passed together."""
+        are over the frames passed together (over every rank's frames under
+        a ``mesh``)."""
         m = self.cfg.model
         fft_in, cfar_in = fft_polar, None
         if m.cfar_input:
@@ -189,7 +207,7 @@ class LearnICPWeightPolicy:
             if cfar_in is not None:
                 cfar_in = radar_polar_to_cartesian(cfar_in, azimuths, m.res,
                                                    m.cart_resolution, m.cart_pixel_width)
-        mask = self.compute_mask(params, fft_in, cfar_in)
+        mask = self.compute_mask(params, fft_in, cfar_in, mesh=mesh)
         if m.norm_weights:
             mask = torch.minimum(mask / _safe_amax_hw(mask), mask.new_ones(()))
         if m.binary_inference:
@@ -211,6 +229,8 @@ class LearnICPWeightPolicy:
         override_mask: torch.Tensor | None = None,
         mask_only: bool = False,
         generator: torch.Generator | None = None,
+        mesh: Mesh | None = None,
+        rows: tuple[int, int] | None = None,
     ) -> PolicyOutput | torch.Tensor:
         """Forward pass. batch_scan: {'fft_data' (B, H, W), 'fft_cfar',
         'raw_pc' (B, N, 3), 'filtered_pc' (B, N, 3)}; batch_map: {'pc' (B, M, 6)}.
@@ -221,12 +241,18 @@ class LearnICPWeightPolicy:
         max(5·max_iter, 50) iterations instead); without the ICP loss terms
         (``use_icp_4_train`` false) the solver is skipped and T_pred is
         T_init.
+
+        ``mesh``: the batch is this rank's rows ``rows`` = (first row, global
+        rows) of a batch sharded over the mesh (:func:`~mm_masking_tpu_torch.
+        parallel.shard_batch`); every batch statistic (the normalisation, the
+        batch norm, the weight statistics, the point counts) is the global
+        batch's, and the dropout masks are the global batch's rows.
         """
         m = self.cfg.model
         if override_mask is None:
             weight_mask = self.compute_mask(
                 params, batch_scan["fft_data"], batch_scan.get("fft_cfar"),
-                train=train, generator=generator)
+                train=train, generator=generator, mesh=mesh, rows=rows)
         else:
             weight_mask = override_mask
         if m.norm_weights:
@@ -245,11 +271,13 @@ class LearnICPWeightPolicy:
                                                 m.cart_resolution, m.cart_pixel_width)
         weights, stats = extract_weights(
             cart_mask, batch_scan["raw_pc"],
-            cart_resolution=m.cart_resolution, cart_pixel_width=m.cart_pixel_width,
+            cart_resolution=m.cart_resolution, cart_pixel_width=m.cart_pixel_width, mesh=mesh,
         )
         raw = batch_scan["raw_pc"]
         non0 = (raw[..., 0] != 0.0) & (raw[..., 1] != 0.0)
         mean_all_pts = non0.sum() / raw.shape[0]
+        if mesh is not None:
+            mean_all_pts = mesh.mean(mean_all_pts)
         if train and not self.cfg.use_icp_4_train:
             return PolicyOutput(T_init, weight_mask, stats.diff_mean_num_non0, stats,
                                 mean_all_pts)
@@ -258,13 +286,14 @@ class LearnICPWeightPolicy:
             cfg_icp = dataclasses.replace(self._icp_inference,
                                           max_iterations=max(m.max_iter * 5, 50), dim=2)
             T_est = icp_implicit(batch_scan["filtered_pc"], batch_map["pc"], T_init, weights,
-                                 cfg_icp)
+                                 cfg_icp, mesh)
             return PolicyOutput(T_est, weight_mask, stats.diff_mean_num_non0, stats,
                                 mean_all_pts)
         result = icp(
             batch_scan["filtered_pc"], batch_map["pc"], T_init, weight=weights,
             cfg=dataclasses.replace(self._icp_train if train else self._icp_inference,
                                     dim=2),
+            mesh=mesh,
         )
         info = {k: v for k, v in result.items() if k != "T"}
         return PolicyOutput(

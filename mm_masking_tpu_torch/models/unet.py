@@ -18,7 +18,15 @@ package.
 
 Training mode (``train=True``) draws its inverted-dropout masks from an
 explicit ``torch.Generator`` and nothing from PyTorch's global generator, so
-a training step is reproducible from a seed. Batch norm does not train yet.
+a training step is reproducible from a seed. Batch norm (``batch_norm=True``)
+is flax's ``nn.BatchNorm``, written out (:func:`batch_norm`): in training it
+normalises with the batch's statistics and updates the running ones in
+place; otherwise it normalises with the running ones.
+
+Under a mesh (``mesh=``, ``rows=``) the input is this rank's rows of a
+global batch: the batch norm's statistics are the global batch's, and each
+dropout mask is the global batch's mask, of which the rank keeps its rows,
+so N ranks compute what one device computes.
 """
 from __future__ import annotations
 
@@ -74,12 +82,54 @@ class Conv3x3(nn.Module):
                        self.bias.to(self.dtype), relu)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: keep each element with
-    probability 1 − rate and scale the kept ones by 1 / (1 − rate)."""
+    probability 1 − rate and scale the kept ones by 1 / (1 − rate). With
+    ``rows`` = (first row, global rows), x is those rows of a global batch:
+    the mask is drawn for the global batch and x takes its rows."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if rows is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        start, total = rows
+        u = torch.rand((total,) + x.shape[1:], generator=generator,
+                       device=x.device)[start:start + x.shape[0]]
+    keep = u < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# flax ``nn.BatchNorm``'s defaults: epsilon, and the running averages' decay.
+BN_EPS, BN_MOMENTUM = 1e-5, 0.99
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, mesh=None) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` over the channels of x (B, C, H, W), its
+    statistics in float32 whatever x's type, the result in x's type.
+
+    ``train``: the batch's mean and biased variance, E[x²] − E[x]² floored
+    at 0 (flax's fast variance), normalise x, and the running statistics
+    take ``ra ← 0.99·ra + 0.01·stat`` in place, the biased variance
+    included (``torch.nn.BatchNorm2d`` would store the unbiased one).
+    Otherwise the running statistics normalise x. Under a ``mesh`` the
+    statistics are the global batch's: one all-reduce of (E[x], E[x²]) in
+    the forward, and one of their cotangents in the backward, as each rank
+    normalises its own rows with them."""
+    if train:
+        xf = x.float()
+        stats = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        if mesh is not None:
+            stats = mesh.sum(stats, local_grad=True) / mesh.size
+        mean, mean2 = stats.unbind(0)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    y = (x.float() - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -90,26 +140,28 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv0 = Conv3x3(cin, features, dtype)
         self.conv1 = Conv3x3(features, features, dtype)
-        # flax BatchNorm: epsilon 1e-5, running-average decay 0.99.
-        self.bn0 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.01) if batch_norm else None
-        self.bn1 = nn.BatchNorm2d(features, eps=1e-5, momentum=0.01) if batch_norm else None
+        # The parameters and running statistics of :func:`batch_norm`.
+        self.bn0 = nn.BatchNorm2d(features, eps=BN_EPS) if batch_norm else None
+        self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS) if batch_norm else None
         self.dropout = dropout
         self.leaky = leaky
         self.pool = pool
 
-    def _act(self, conv: Conv3x3, bn: nn.BatchNorm2d | None, x: torch.Tensor):
+    def _act(self, conv: Conv3x3, bn: nn.BatchNorm2d | None, x: torch.Tensor,
+             train: bool, mesh):
         x = conv(x, relu=not self.leaky)  # plain ReLU rides the conv epilogue
         if self.leaky:
             x = F.leaky_relu(x, 0.1)
-        return bn(x) if bn is not None else x
+        return batch_norm(x, bn, train, mesh) if bn is not None else x
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None
-                ) -> torch.Tensor:
-        """``generator`` given: training mode, dropout on."""
-        x = self._act(self.conv0, self.bn0, x)
-        x = self._act(self.conv1, self.bn1, x)
-        if generator is not None and self.dropout > 0.0:
-            x = dropout(x, self.dropout, generator)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None, mesh=None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
+        """``train``: batch statistics, and dropout from ``generator``."""
+        x = self._act(self.conv0, self.bn0, x, train, mesh)
+        x = self._act(self.conv1, self.bn1, x, train, mesh)
+        if train and self.dropout > 0.0:
+            x = dropout(x, self.dropout, generator, rows)
         if self.pool:
             x = F.max_pool2d(x, 2, 2)
         return x
@@ -157,29 +209,28 @@ class UNet(nn.Module):
                     mod.bias.zero_()
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, mesh=None,
+                rows: tuple[int, int] | None = None) -> torch.Tensor:
         """``train``: dropout masks from ``generator`` (on x's device), drawn
-        anew at each block application; required when dropout > 0."""
-        if train:
-            if self.blocks[0].bn0 is not None:
-                raise NotImplementedError(
-                    "batch-norm training is not ported yet: ROADMAP.md queue 1 "
-                    "item 19, 'Batch-norm training'")
-            if self.blocks[0].dropout > 0.0 and generator is None:
-                raise ValueError("training with dropout needs a torch.Generator")
-        else:
-            generator = None
+        anew at each block application and required when dropout > 0; batch
+        norm on the batch's statistics, updating the running ones in place
+        at each block application (a decoder block's twice, in order).
+        ``mesh`` and ``rows`` = (first row, global rows): x is this rank's
+        rows of a batch sharded over the mesh."""
+        if train and self.blocks[0].dropout > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a torch.Generator")
+        kw = dict(train=train, generator=generator, mesh=mesh, rows=rows)
         x = x.to(self.dtype)
         skips = []
         for block in self.blocks[:self.n_enc]:
             skips.append(x)
-            x = block(x, generator)
+            x = block(x, **kw)
         skips.reverse()
         for i, block in enumerate(self.blocks[self.n_enc:]):
             skip = skips[i]
             x = upsample_bilinear_align_corners(x, tuple(skip.shape[2:]))
-            x = block(x, generator)
-            x = block(torch.cat([skip, x], dim=1), generator)
+            x = block(x, **kw)
+            x = block(torch.cat([skip, x], dim=1), **kw)
         return torch.sigmoid(conv1x1(x, self.final.weight, self.final.bias))[:, 0]
 
 

@@ -19,6 +19,11 @@ three innermost calls dispatch: :func:`conv3x3_forward` (K2),
 :func:`conv3x3_dk` (K3) launch their kernel on CUDA tensors and run their
 plain version on CPU tensors, so the CPU tests run the backward's own logic.
 Each of the three counts its launches.
+
+K2's forward launches through the custom operator ``mm_masking::conv3x3``
+(``torch.library.custom_op``, with a fake version that gives the output's
+shape), so that ``torch.export`` of a forward traced on the card holds it as
+one operator; a CPU trace holds the plain version's ATen operators.
 """
 from __future__ import annotations
 
@@ -108,14 +113,25 @@ def _launch_forward(x, weight, bias, relu):
     return y
 
 
+@torch.library.custom_op("mm_masking::conv3x3", mutates_args=())
+def _conv3x3_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                relu: bool) -> torch.Tensor:
+    y = _launch_forward(x, weight, bias, relu)
+    conv3x3.launches += 1
+    return y
+
+
+@_conv3x3_op.register_fake
+def _(x, weight, bias, relu):
+    return x.new_empty((x.shape[0], weight.shape[0], x.shape[2], x.shape[3]))
+
+
 def conv3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     relu: bool = False) -> torch.Tensor:
     """K2: y = conv(x, weight) + bias [ReLU]; no autograd graph."""
     if not use_kernel(x, weight, bias):
         return conv3x3_plain(x, weight, bias, relu)
-    y = _launch_forward(x, weight, bias, relu)
-    conv3x3.launches += 1
-    return y
+    return _conv3x3_op(x, weight, bias, relu)
 
 
 def conv3x3_dx(dy: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

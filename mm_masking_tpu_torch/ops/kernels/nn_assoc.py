@@ -24,6 +24,12 @@ blocks than the static budget ``window // tm + 1``, every tile scans the
 whole map, which gives the dense result. That choice is a select on the
 device, so the dispatcher reads nothing back to the host. Within trim the
 result equals the dense one.
+
+Both launches go through custom operators (``mm_masking::nn_argmin`` and
+``mm_masking::nn_stripe``, ``torch.library.custom_op`` with fake versions),
+so that ``torch.export`` of a solve traced on the card holds them; on the
+CPU, and under ``torch.export`` there, the plain versions run as ATen
+operators.
 """
 from __future__ import annotations
 
@@ -59,7 +65,8 @@ def nn_argmin_plain(p: torch.Tensor, q: torch.Tensor) -> tuple[torch.Tensor, tor
     """Plain dense version: running (min, first argmin) over map chunks."""
     B, N, _ = p.shape
     M = q.shape[1]
-    chunk = max(1, min(M, _PLAIN_ELEMS // max(1, B * N)))
+    # Under torch.export B may be symbolic: one chunk (the same result).
+    chunk = M if torch.compiler.is_exporting() else max(1, min(M, _PLAIN_ELEMS // max(1, B * N)))
     best = torch.full((B, N), float("inf"), dtype=torch.float32, device=p.device)
     best_idx = torch.zeros((B, N), dtype=torch.int64, device=p.device)
     for k0 in range(0, M, chunk):
@@ -93,6 +100,22 @@ def _outputs(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]
             torch.empty((B, N), dtype=torch.int64, device=p.device))
 
 
+@torch.library.custom_op("mm_masking::nn_argmin", mutates_args=())
+def _nn_argmin_op(p: torch.Tensor, q4: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    B, N, _ = p.shape
+    M = q4.shape[1]
+    idx, d2, scratch = _outputs(p)
+    launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), None, None,
+           B, N, M, NN_ROWS, M, NN_SPAN, idx.data_ptr(), d2.data_ptr(), scratch.data_ptr())
+    nn_argmin.launches += 1
+    return idx, d2
+
+
+@_nn_argmin_op.register_fake
+def _(p, q4):
+    return _outputs(p)[:2]
+
+
 def nn_argmin(p: torch.Tensor, q: torch.Tensor, q4: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense NN. p (B, N, 3), q (B, M, ≥3) → (idx (B, N) int32, d2 (B, N)).
@@ -103,13 +126,7 @@ def nn_argmin(p: torch.Tensor, q: torch.Tensor, q4: torch.Tensor | None = None
         return nn_argmin_plain(p, q[..., :3])
     q4 = map_layout(q) if q4 is None else q4
     _check_points(p, q4)
-    B, N, _ = p.shape
-    M = q4.shape[1]
-    idx, d2, scratch = _outputs(p)
-    launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), None, None,
-           B, N, M, NN_ROWS, M, NN_SPAN, idx.data_ptr(), d2.data_ptr(), scratch.data_ptr())
-    nn_argmin.launches += 1
-    return idx, d2
+    return _nn_argmin_op(p, q4)
 
 
 nn_argmin.launches = 0
@@ -125,7 +142,10 @@ def nn_stripe_plain(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
     T = start_blk.shape[1]
     rows = N // T
     M = q.shape[1]
-    width = max(1, int(nblk.max())) * tm
+    if torch.compiler.is_exporting():  # no read of the data: every block, the same result
+        width = -(-M // tm) * tm
+    else:
+        width = max(1, int(nblk.max())) * tm
     offs = torch.arange(width, device=p.device)
     cols = start_blk.long()[..., None] * tm + offs  # (B, T, width)
     valid = (offs < nblk.long()[..., None] * tm) & (cols < M)
@@ -133,8 +153,12 @@ def nn_stripe_plain(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
     pt = p.reshape(B, T, rows, 3)
     idx = torch.empty((B, T, rows), dtype=torch.int64, device=p.device)
     d2 = torch.empty((B, T, rows), dtype=torch.float32, device=p.device)
-    step = max(1, _PLAIN_ELEMS // (T * rows * width))
-    for b0 in range(0, B, step):
+    if torch.compiler.is_exporting():  # B may be symbolic: one step over the batch
+        step, starts = B, [0]
+    else:
+        step = max(1, _PLAIN_ELEMS // (T * rows * width))
+        starts = range(0, B, step)
+    for b0 in starts:
         sl = slice(b0, b0 + step)
         nb = cols[sl].shape[0]
         qw = torch.gather(
@@ -174,12 +198,24 @@ def nn_stripe(p: torch.Tensor, q: torch.Tensor, start_blk: torch.Tensor,
     for t in (start_blk, nblk):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("start_blk and nblk must be contiguous int32")
+    return _nn_stripe_op(p, q4, start_blk, nblk, tm)
+
+
+@torch.library.custom_op("mm_masking::nn_stripe", mutates_args=())
+def _nn_stripe_op(p: torch.Tensor, q4: torch.Tensor, start_blk: torch.Tensor,
+                  nblk: torch.Tensor, tm: int) -> tuple[torch.Tensor, torch.Tensor]:
+    B, N, _ = p.shape
     idx, d2, scratch = _outputs(p)
     launch("mm_nn_argmin", p.device, p.data_ptr(), q4.data_ptr(), start_blk.data_ptr(),
-           nblk.data_ptr(), B, N, q4.shape[1], rows, tm, NN_STRIPE_SPAN, idx.data_ptr(),
-           d2.data_ptr(), scratch.data_ptr())
+           nblk.data_ptr(), B, N, q4.shape[1], N // start_blk.shape[1], tm, NN_STRIPE_SPAN,
+           idx.data_ptr(), d2.data_ptr(), scratch.data_ptr())
     nn_stripe.launches += 1
     return idx, d2
+
+
+@_nn_stripe_op.register_fake
+def _(p, q4, start_blk, nblk, tm):
+    return _outputs(p)[:2]
 
 
 nn_stripe.launches = 0

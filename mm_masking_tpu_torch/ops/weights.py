@@ -28,9 +28,12 @@ def extract_weights(
     scan_pc: torch.Tensor,
     cart_resolution: float = CART_RESOLUTION,
     cart_pixel_width: int = CART_PIXEL_WIDTH,
+    mesh=None,
 ) -> tuple[torch.Tensor, WeightStats]:
     """mask (B, H, W), scan_pc (B, N, 2/3) padded with (0, 0) rows →
-    weights (B, N) and :class:`WeightStats` over the real points only.
+    weights (B, N) and :class:`WeightStats` over the real points only; under
+    a ``mesh`` (the batch this rank's rows of a sharded batch) the
+    statistics are the global batch's.
 
     Pad points are routed to (−100, −100), so all four taps fall outside
     the image and their weight is exactly 0.
@@ -45,16 +48,18 @@ def extract_weights(
 
     B = weights.shape[0]
     real = ~fake
-    n_real = real.sum().clamp(min=1)
     w = weights.detach()
-    stats = WeightStats(
-        diff_mean_num_non0=torch.where(
-            real, 0.5 * torch.tanh(5.0 * weights) + 0.5, 0.0).sum() / B,
-        mean_num_non0=((w > 0.05) & real).sum() / B,
-        mean_w=torch.where(real, w, 0.0).sum() / n_real,
-        max_w=torch.where(real, w, float("-inf")).max(),
-        min_w=torch.where(real, w, float("inf")).min(),
-    )
+    diff_num = torch.where(real, 0.5 * torch.tanh(5.0 * weights) + 0.5, 0.0).sum() / B
+    num = ((w > 0.05) & real).sum() / B
+    sum_w, n_real = torch.where(real, w, 0.0).sum(), real.sum()
+    max_w = torch.where(real, w, float("-inf")).max()
+    min_w = torch.where(real, w, float("inf")).min()
+    if mesh is not None:
+        diff_num, num = mesh.mean(diff_num), mesh.mean(num)
+        sum_w, n_real = mesh.sum(sum_w), mesh.sum(n_real)
+        max_w, min_w = mesh.max(max_w), mesh.min(min_w)
+    stats = WeightStats(diff_mean_num_non0=diff_num, mean_num_non0=num,
+                        mean_w=sum_w / n_real.clamp(min=1), max_w=max_w, min_w=min_w)
     return weights, stats
 
 

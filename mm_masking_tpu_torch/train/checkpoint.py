@@ -1,9 +1,11 @@
 """Checkpoints of the whole training state with ``torch.save`` (counterpart
 of ``mm_masking_tpu.train.checkpoint``, which uses orbax).
 
-A checkpoint ``<dir>/<name>.pt`` holds the UNet parameters, the optimizer's
+A checkpoint ``<dir>/<name>.pt`` holds the UNet parameters (with the batch
+norm's running statistics, when the UNet has batch norm), the optimizer's
 state, the step and epoch counters, the best validation norm and the state
-of the dropout generator, so a resumed run continues exactly.
+of the dropout generator, so a resumed run continues exactly. Under a mesh
+rank 0 writes it and every rank restores it.
 """
 from __future__ import annotations
 

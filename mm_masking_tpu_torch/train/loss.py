@@ -6,6 +6,13 @@ The ICP pose terms read the first-order planar twist from ``T − I`` (or
 ‖(x, y)‖. The mask terms are BCEs of the mask against the FFT threshold
 mask, the CFAR image and the map points' BEV occupancy; the point-count
 term is ``mean_all_pts − diff_num_non0`` (or its hinge at a floor).
+
+Under a mesh (``mesh=``, the batch this rank's rows of a sharded batch)
+every batch mean is the global batch's: a mean over equal shards is the
+mean of the ranks' means (:meth:`Mesh.mean`, whose backward leaves each
+rank the gradient of its own rows), and the point-count hinge takes the
+global means the policy gives it, so every rank computes the one-device
+loss and components.
 """
 from __future__ import annotations
 
@@ -53,20 +60,24 @@ class _BCEElem(torch.autograd.Function):
         return d_pred, g * (log_1mp - log_p)
 
 
-def bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def bce(pred: torch.Tensor, target: torch.Tensor, mesh=None) -> torch.Tensor:
     """``torch.nn.BCELoss`` (mean) with the gradient of :class:`_BCEElem`."""
-    return _BCEElem.apply(pred, target).mean()
+    loss = _BCEElem.apply(pred, target).mean()
+    return loss if mesh is None else mesh.mean(loss)
 
 
 def _relative(T_pred: torch.Tensor, T_gt: torch.Tensor, gt_eye: bool) -> torch.Tensor:
     return T_pred if gt_eye else T_pred @ se3_inv(T_gt)
 
 
-def pose_errors(T_pred: torch.Tensor, T_gt: torch.Tensor, gt_eye: bool = True):
+def pose_errors(T_pred: torch.Tensor, T_gt: torch.Tensor, gt_eye: bool = True, mesh=None):
     """(rot_err, trans_err): mean |sin θ| and mean ‖(x, y)‖."""
     xi_theta, xi_r = planar_xi_first_order(_relative(T_pred, T_gt, gt_eye))
-    return (torch.linalg.vector_norm(xi_theta, dim=-1).mean(),
-            torch.linalg.vector_norm(xi_r, dim=-1).mean())
+    rot = torch.linalg.vector_norm(xi_theta, dim=-1).mean()
+    trans = torch.linalg.vector_norm(xi_r, dim=-1).mean()
+    if mesh is not None:
+        rot, trans = mesh.mean(rot), mesh.mean(trans)
+    return rot, trans
 
 
 def fft_threshold_mask(fft_data: torch.Tensor) -> torch.Tensor:
@@ -89,8 +100,11 @@ def eval_training_loss(
     gt_eye: bool = True,
     cart_pixel_width: int = 640,
     cart_resolution: float = 0.2384,
+    mesh=None,
 ) -> tuple[torch.Tensor, LossComponents]:
     """The weighted 6-term loss and its (detached, weighted) components.
+    ``mean_all_pts`` and ``diff_num_non0`` are batch means (the global
+    batch's under a ``mesh``).
 
     ``mask_losses_active`` is the reference's ``icp_loss_only_iter`` gate: the
     mask terms run while it is true, and always when both ICP terms are off.
@@ -99,13 +113,13 @@ def eval_training_loss(
     loss_rot = loss_trans = loss_fft = loss_mask_pts = loss_cfar = loss_num_pts = zero
 
     if weights.icp_rot > 0.0 or weights.icp_trans > 0.0:
-        loss_rot, loss_trans = pose_errors(T_pred, T_gt, gt_eye=gt_eye)
+        loss_rot, loss_trans = pose_errors(T_pred, T_gt, gt_eye=gt_eye, mesh=mesh)
 
     if mask_losses_active or (weights.icp_rot <= 0 and weights.icp_trans <= 0):
         if weights.fft > 0.0:
-            loss_fft = bce(mask, fft_threshold_mask(batch_scan["fft_data"]))
+            loss_fft = bce(mask, fft_threshold_mask(batch_scan["fft_data"]), mesh)
         if weights.cfar > 0.0:
-            loss_cfar = bce(mask, batch_scan["fft_cfar"])
+            loss_cfar = bce(mask, batch_scan["fft_cfar"], mesh)
         if weights.mask_pts > 0.0:
             if tuple(mask.shape[-2:]) != (cart_pixel_width, cart_pixel_width):
                 # A polar mask against the cartesian BEV: the JAX package's
@@ -117,10 +131,11 @@ def eval_training_loss(
             map_bev = extract_bev_from_pts(batch_map["pc"][..., :3],
                                            cart_pixel_width=cart_pixel_width,
                                            cart_resolution=cart_resolution)
-            loss_mask_pts = bce(mask, map_bev)
+            loss_mask_pts = bce(mask, map_bev, mesh)
         if weights.num_pts > 0.0:
             if weights.num_pts_floor > 0.0:
-                # Hinge: the linear term's gradient below the floor, 0 above.
+                # Hinge: the linear term's gradient below the floor, 0 above;
+                # of the global means, so a mesh applies it once, globally.
                 loss_num_pts = torch.maximum(
                     weights.num_pts_floor * mean_all_pts - diff_num_non0, zero)
             else:
@@ -141,8 +156,11 @@ def eval_training_loss(
 
 
 def eval_validation_loss(T_pred: torch.Tensor, T_gt: torch.Tensor,
-                         gt_eye: bool = True) -> torch.Tensor:
-    """(norm, rot, trans) error triple, shape (3,)."""
+                         gt_eye: bool = True, mesh=None) -> torch.Tensor:
+    """(norm, rot, trans) error triple, shape (3,); under a ``mesh`` over
+    every rank's items, gathered in rank order."""
+    if mesh is not None:
+        T_pred, T_gt = mesh.gather(T_pred), mesh.gather(T_gt)
     xi_theta, xi_r = planar_xi_first_order(_relative(T_pred, T_gt, gt_eye))
     xi_stack = torch.cat([xi_theta, xi_r], dim=-1)
     return torch.stack([

@@ -8,6 +8,12 @@ Boreas-layout tree under ``data.data_dir`` (``ICPWeightDataset`` over
 ``train_loc_pairs`` and ``val_loc_pairs``, batched by ``epoch_batches``).
 It runs on the card (``--device cuda``, the default) and raises without one;
 ``--device cpu`` runs it on the CPU.
+
+Under ``torchrun --nproc-per-node N`` it trains data-parallel over N
+processes: each joins the group (NCCL on the card, each rank on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``), the batches are sharded
+over the first ``train.num_devices`` ranks (-1: all), and rank 0 writes the
+log and the checkpoints.
 """
 from __future__ import annotations
 
@@ -15,8 +21,11 @@ import argparse
 import dataclasses
 import math
 
+import torch.distributed as dist
+
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.device import resolve_device
+from mm_masking_tpu_torch.parallel import init_distributed, make_mesh
 
 
 def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
@@ -79,7 +88,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = apply_overrides(Config(), args.set)
-    device = resolve_device(args.device)
+    joined = not dist.is_initialized()
+    device = init_distributed(resolve_device(args.device))
+    joined = joined and dist.is_initialized()  # the group is this call's to end
+    try:
+        _run(args, cfg, device, make_mesh(cfg.train.num_devices, device))
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg: Config, device, mesh) -> None:
     from mm_masking_tpu_torch.train.trainer import Trainer
 
     if not args.synthetic:
@@ -92,13 +111,14 @@ def main(argv=None):
 
         def train_batches(epoch):
             return epoch_batches(train_ds, cfg.train.batch_size_train, cfg,
-                                 shuffle=cfg.train.shuffle, seed=epoch, device=device)
+                                 shuffle=cfg.train.shuffle, seed=epoch, device=device,
+                                 mesh=mesh)
 
         def val_batches():
             return epoch_batches(val_ds, cfg.train.batch_size_test, cfg,
-                                 shuffle=False, drop_last=False, device=device)
+                                 shuffle=False, drop_last=False, device=device, mesh=mesh)
 
-        Trainer(cfg, device).fit(train_batches, val_batches)
+        Trainer(cfg, device, mesh=mesh).fit(train_batches, val_batches)
         return
 
     from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
@@ -134,7 +154,7 @@ def main(argv=None):
             return (synthetic_batch(10_000_000 + i, bv, spec, device=device)
                     for i in range(2))
 
-    Trainer(cfg, device).fit(train_batches, val_batches)
+    Trainer(cfg, device, mesh=mesh).fit(train_batches, val_batches)
 
 
 if __name__ == "__main__":

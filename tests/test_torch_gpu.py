@@ -1112,12 +1112,12 @@ def test_gated_stripe_keeps_the_ids_of_items_that_skip(cuda, monkeypatch):
     seen = []
     step = icp_module._iterate_gated
 
-    def spy(st, inp, cfg, stripe, n):
+    def spy(st, inp, cfg, stripe, n, mesh=None):
         for _ in range(n):
             go = (st["done"] < cfg.max_iterations) & (st["dn"].amax() >= cfg.tolerance)
             need = go & ((st["done"] == 0) | (st["moved"] >= cfg.nn_refresh_dist))
             before = st["idx"].clone()
-            step(st, inp, cfg, stripe, 1)
+            step(st, inp, cfg, stripe, 1, mesh)
             seen.append((need.clone(), before, st["idx"].clone()))
 
     monkeypatch.setattr(icp_module, "_iterate_gated", spy)

@@ -29,6 +29,7 @@ from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.dicp import icp
 from mm_masking_tpu_torch.localization import pipeline
 from mm_masking_tpu_torch.models import LearnICPWeightPolicy, params_from_flax
+from mm_masking_tpu_torch.parallel import make_mesh
 
 SPEC = SyntheticSpec(
     n_scan=128, n_map=512, polar_shape=(64, 512), cart_pixel_width=64,
@@ -247,13 +248,23 @@ def test_localize_sequence_to_traj_writes_T_loc_map(scene, tmp_path):
 
 
 def test_unported_paths_raise(scene, policies):
+    """``mesh=`` runs since the mesh was ported: the trivial mesh of one
+    process gives the call without a mesh (``tests/test_torch_mesh.py``
+    holds two ranks). A tracked sequence of clouds with a policy still
+    raises: the mask needs the raw scans."""
     _, _, policy, params = policies
     b = scene
     map_pc = t(np.asarray(b["map_data"]["pc"])[:1])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pipeline.localize_sequence(frames_of(b), map_pc, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        pipeline.localize_cloud_sequence(np.zeros((2, 8, 3), np.float32), map_pc, mesh=object())
+    frames = {k: np.asarray(v)[:2] for k, v in frames_of(b).items()}
+    cfg = pipeline.LocalizationConfig(**CFG)
+    got = pipeline.localize_sequence(frames, map_pc, cfg, batch_size=2, mesh=make_mesh())
+    want = pipeline.localize_sequence(frames, map_pc, cfg, batch_size=2)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    clouds = want["points"]
+    got = pipeline.localize_cloud_sequence(clouds, map_pc, cfg, batch_size=2, mesh=make_mesh())
+    assert torch.equal(got["T"], pipeline.localize_cloud_sequence(clouds, map_pc, cfg,
+                                                                  batch_size=2)["T"])
     with pytest.raises(ValueError, match="raw frames"):
         pipeline.localize_sequence_tracked(None, map_pc, clouds=np.zeros((1, 8, 3), np.float32),
                                            weight_policy=policy, policy_variables=params)
