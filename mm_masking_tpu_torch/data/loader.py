@@ -23,6 +23,7 @@ import torch
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.ops import radar_polar_to_cartesian
 from mm_masking_tpu_torch.parallel.mesh import ShardedBatch, shard_batch
+from mm_masking_tpu_torch.utils import profiling
 
 
 def _collate(items: list[dict]) -> dict:
@@ -103,7 +104,9 @@ def epoch_batches(
     collates batch k+1 while the caller's step k runs. Exactly ONE worker, so
     the item order and the dataset's augmentation-RNG draws are those of the
     inline path (``prefetch=0``). An abandoned generator stops and joins its
-    worker.
+    worker. Each wait of the caller on the worker's queue is a span
+    ``mm.loader.wait`` and adds its nanoseconds to the host counter
+    ``loader.wait_ns`` (:mod:`mm_masking_tpu_torch.utils.profiling`).
     """
     n = len(dataset)
     order = np.arange(n)
@@ -157,7 +160,8 @@ def epoch_batches(
     t.start()
     try:
         while True:
-            item = q.get()
+            with profiling.blocked("mm.loader.wait", "loader.wait_ns"):
+                item = q.get()
             if item is _END:
                 break
             if isinstance(item, BaseException):

@@ -27,8 +27,11 @@ Per iteration:
 
 Nothing in an iteration reads the device from the host: the stripe
 budget test is a select on the device, and the inference loop counts its
-iterations there. The inference loop runs in chunks of
-``STOP_TEST_EVERY`` iterations and reads its stop test once per chunk; a
+iterations there, each item's too (``ran``), and adds them to the device
+counters ``icp.item_iters`` and ``icp.item_slots`` (items × iterations
+computed; :mod:`mm_masking_tpu_torch.utils.profiling`). The inference loop
+runs in chunks of ``STOP_TEST_EVERY`` iterations and reads its stop test
+once per chunk; a
 chunk's iterations change nothing once every item has stopped, so the
 result is that of a test after every iteration. On the card a chunk is a
 CUDA graph, captured once per configuration and shape and replayed
@@ -59,6 +62,7 @@ from mm_masking_tpu_torch.ops.kernels.nn_assoc import (
     nn_argmin_stripe_presorted,
     stripe_sort_target,
 )
+from mm_masking_tpu_torch.utils import profiling
 
 TARGET_PAD_VAL = 1000.0  # map pad sentinel; > any real range, trimmed out
 STOP_TEST_EVERY = 5  # inference GN iterations between two reads of the stop test
@@ -331,7 +335,8 @@ def icp(
     ``mesh``: the batch is this rank's rows of a batch sharded over the
     mesh; the motion-gated solve then reduces over it (module docstring).
     """
-    inp, stripe = _prepare(source, target, T_init, weight, cfg, T_prior)
+    with profiling.span("mm.icp.prepare"):
+        inp, stripe = _prepare(source, target, T_init, weight, cfg, T_prior)
     if cfg.differentiable:
         T, norms = T_init, []
         for _ in range(cfg.max_iterations):
@@ -339,7 +344,8 @@ def icp(
             T, delta = _gn_step(T, idx=_associate(inp, p, cfg, stripe), **_step_args(inp, cfg))
             norms.append(torch.linalg.vector_norm(delta, dim=-1))
         return {"T": T, "delta_norms": torch.stack(norms)}
-    with torch.no_grad():  # the tolerance-stopped solve has no gradient, as in JAX
+    # The tolerance-stopped solve has no gradient, as in JAX.
+    with torch.no_grad(), profiling.span("mm.icp.solve"):
         return _solve_to_tolerance(inp, T_init, cfg, stripe, mesh)
 
 
@@ -398,17 +404,31 @@ def _associate(inp: dict, p: torch.Tensor, cfg: ICPConfig, stripe: bool,
         tn=cfg.nn_stripe_tile, q4=inp["q4"], refresh=refresh)[0]
 
 
+def _count_items(st: dict, ran_before: torch.Tensor | None, n: int) -> None:
+    """Add the item iterations run since ``ran_before`` (the sum of
+    ``st["ran"]`` then) and the n iterations computed for each item to the
+    device counters ``icp.item_iters`` and ``icp.item_slots``."""
+    if ran_before is None:
+        return
+    dev = st["ran"].device
+    profiling.device_counter("icp.item_iters", dev).add_(st["ran"].sum() - ran_before)
+    profiling.device_counter("icp.item_slots", dev).add_(st["ran"].numel() * n)
+
+
 def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int, mesh=None) -> None:
     """n iterations of the tolerance-stopped solve, in place on its state
     ``st`` (T, dn, idx, moved, done = iterations taken, iterations = those
-    in which the solve ran); with ``cfg.nn_refresh_dist > 0`` the gated
-    loop of :func:`_iterate_gated`. An item runs while its last update's
-    stop magnitude is at least the tolerance and fewer than
-    ``max_iterations`` have been taken; a stopped item keeps T, dn and idx,
-    so an iteration in which no item runs changes nothing but ``done``."""
+    in which the solve ran, ran = those in which each item ran); with
+    ``cfg.nn_refresh_dist > 0`` the gated loop of :func:`_iterate_gated`. An
+    item runs while its last update's stop magnitude is at least the
+    tolerance and fewer than ``max_iterations`` have been taken; a stopped
+    item keeps T, dn and idx, so an iteration in which no item runs changes
+    nothing but ``done``. The device counters count the items' iterations
+    (:func:`_count_items`), except under ``torch.export``."""
     if cfg.nn_refresh_dist > 0.0:
         _iterate_gated(st, inp, cfg, stripe, n, mesh)
         return
+    ran_before = None if torch.compiler.is_exporting() else st["ran"].sum()
     step_args = _step_args(inp, cfg)
     for _ in range(n):
         T = st["T"]
@@ -422,7 +442,9 @@ def _iterate(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int, mesh=Non
         st["T"].copy_(torch.where(run[:, None, None], T_new, T))
         st["dn"].copy_(torch.where(run, _stop_mag(delta, cfg), st["dn"]))
         st["iterations"].add_(run.any())
+        st["ran"].add_(run)
         st["done"].add_(1)
+    _count_items(st, ran_before, n)
 
 
 def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int,
@@ -437,7 +459,9 @@ def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int,
     (the stripe call gives them no blocks; the dense search runs for all
     and the select drops it). Once ``go`` is false no item searches and
     nothing changes but ``done``. Under a ``mesh`` the largest stop
-    magnitude is the global batch's."""
+    magnitude is the global batch's. Every item runs the iterations in
+    which the solve runs (``ran``)."""
+    ran_before = None if torch.compiler.is_exporting() else st["ran"].sum()
     step_args = _step_args(inp, cfg)
     for _ in range(n):
         T = st["T"]
@@ -456,7 +480,9 @@ def _iterate_gated(st: dict, inp: dict, cfg: ICPConfig, stripe: bool, n: int,
         st["dn"].copy_(torch.where(go, _stop_mag(delta, cfg), st["dn"]))
         st["moved"].copy_(torch.where(go, moved, st["moved"]))
         st["iterations"].add_(go)
+        st["ran"].add_(go)
         st["done"].add_(1)
+    _count_items(st, ran_before, n)
 
 
 def _start(st: dict, T_init: torch.Tensor) -> None:
@@ -464,7 +490,7 @@ def _start(st: dict, T_init: torch.Tensor) -> None:
     st["T"].copy_(T_init)
     st["dn"].fill_(float("inf"))
     st["moved"].fill_(float("inf"))
-    for name in ("idx", "done", "iterations"):
+    for name in ("idx", "done", "iterations", "ran"):
         st[name].zero_()
 
 
@@ -474,7 +500,8 @@ def _new_state(T_init: torch.Tensor, n_points: int) -> dict:
           "moved": torch.empty((B,), dtype=T_init.dtype, device=dev),
           "idx": torch.empty((B, n_points), dtype=torch.int32, device=dev),
           "done": torch.empty((), dtype=torch.int64, device=dev),
-          "iterations": torch.empty((), dtype=torch.int64, device=dev)}
+          "iterations": torch.empty((), dtype=torch.int64, device=dev),
+          "ran": torch.empty((B,), dtype=torch.int64, device=dev)}
     _start(st, T_init)
     return st
 
@@ -497,7 +524,13 @@ def solve_in_chunks(key, inp: dict, device: torch.device, max_iterations: int,
     whether the state is the graph's static one, which the next solve of
     this key overwrites). With a ``mesh`` the stop test is the mesh's
     (whether any rank's item runs), so every rank runs the same chunks, as
-    an ``iterate`` that reduces over the mesh needs."""
+    an ``iterate`` that reduces over the mesh needs.
+
+    Each chunk is a span ``mm.icp.chunk`` and counts in the host counter
+    ``icp.chunks``; each read of the stop test is a span
+    ``mm.icp.stop_read``, counts in ``icp.stop_reads`` and adds the
+    nanoseconds the host waits in it to ``icp.stop_wait_ns`` and to the
+    step's blocked time (:mod:`mm_masking_tpu_torch.utils.profiling`)."""
     k = max(1, min(STOP_TEST_EVERY, max_iterations))
     n_chunks = -(-max(max_iterations, 0) // k)
     graphs = use_graphs(device) and n_chunks > 0
@@ -523,14 +556,19 @@ def solve_in_chunks(key, inp: dict, device: torch.device, max_iterations: int,
             iterate(st, inp, k)
     stop_tests = 0
     for c in range(n_chunks):
-        chunk()
+        with profiling.span("mm.icp.chunk"):
+            chunk()
+        profiling.count("icp.chunks")
         if c + 1 == n_chunks:
             break
         stop_tests += 1
+        profiling.count("icp.stop_reads")
         running = (st["dn"] >= tolerance).any()
         if mesh is not None:
             running = mesh.any(running)
-        if not bool(running):
+        with profiling.blocked("mm.icp.stop_read", "icp.stop_wait_ns"):
+            running = bool(running)
+        if not running:
             break
     return st, stop_tests, graphs
 

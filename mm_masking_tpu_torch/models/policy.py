@@ -25,6 +25,7 @@ from torch.func import functional_call
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.dicp import ICPConfig, icp, icp_implicit
 from mm_masking_tpu_torch.models.unet import UNet
+from mm_masking_tpu_torch.utils import profiling
 from mm_masking_tpu_torch.parallel.mesh import Mesh
 from mm_masking_tpu_torch.ops import (
     cfar_mask,
@@ -247,37 +248,43 @@ class LearnICPWeightPolicy:
         parallel.shard_batch`); every batch statistic (the normalisation, the
         batch norm, the weight statistics, the point counts) is the global
         batch's, and the dropout masks are the global batch's rows.
+
+        Spans: ``mm.policy.unet`` (the mask) and ``mm.policy.weights`` (the
+        weights at the scan points), then the solve's
+        (:func:`~mm_masking_tpu_torch.dicp.icp`). In a marked train step
+        (``utils.profiling.phases``) the UNet's, the lookup's and the ICP's
+        forwards end in marks, and the gradient reaching the pose, the
+        weights and the mask marks their backwards.
         """
         m = self.cfg.model
         if override_mask is None:
-            weight_mask = self.compute_mask(
-                params, batch_scan["fft_data"], batch_scan.get("fft_cfar"),
-                train=train, generator=generator, mesh=mesh, rows=rows)
+            with profiling.span("mm.policy.unet"):
+                weight_mask = self.compute_mask(
+                    params, batch_scan["fft_data"], batch_scan.get("fft_cfar"),
+                    train=train, generator=generator, mesh=mesh, rows=rows)
+            profiling.mark("unet.fwd")
+            profiling.grad_mark(weight_mask, "lookup.bwd")
         else:
             weight_mask = override_mask
-        if m.norm_weights:
-            # The minimum keeps the mask ≤ 1 where a division overshoots by an
-            # ulp; like jnp.minimum it splits the cotangent at a tie.
-            weight_mask = torch.minimum(weight_mask / _safe_amax_hw(weight_mask),
-                                        weight_mask.new_ones(()))
-        if binary:
-            weight_mask = (weight_mask > 0.5).to(weight_mask.dtype)
         if mask_only:
-            return weight_mask
-
-        cart_mask = weight_mask
-        if m.network_output_type == "polar":
-            cart_mask = polar_mask_to_cartesian(weight_mask, batch_scan["azimuths"], m.res,
-                                                m.cart_resolution, m.cart_pixel_width)
-        weights, stats = extract_weights(
-            cart_mask, batch_scan["raw_pc"],
-            cart_resolution=m.cart_resolution, cart_pixel_width=m.cart_pixel_width, mesh=mesh,
-        )
-        raw = batch_scan["raw_pc"]
-        non0 = (raw[..., 0] != 0.0) & (raw[..., 1] != 0.0)
-        mean_all_pts = non0.sum() / raw.shape[0]
-        if mesh is not None:
-            mean_all_pts = mesh.mean(mean_all_pts)
+            return self._normalized(weight_mask, binary)
+        with profiling.span("mm.policy.weights"):
+            weight_mask = self._normalized(weight_mask, binary)
+            cart_mask = weight_mask
+            if m.network_output_type == "polar":
+                cart_mask = polar_mask_to_cartesian(weight_mask, batch_scan["azimuths"], m.res,
+                                                    m.cart_resolution, m.cart_pixel_width)
+            weights, stats = extract_weights(
+                cart_mask, batch_scan["raw_pc"], cart_resolution=m.cart_resolution,
+                cart_pixel_width=m.cart_pixel_width, mesh=mesh,
+            )
+            raw = batch_scan["raw_pc"]
+            non0 = (raw[..., 0] != 0.0) & (raw[..., 1] != 0.0)
+            mean_all_pts = non0.sum() / raw.shape[0]
+            if mesh is not None:
+                mean_all_pts = mesh.mean(mean_all_pts)
+        profiling.mark("lookup.fwd")
+        profiling.grad_mark(weights, "icp.bwd")
         if train and not self.cfg.use_icp_4_train:
             return PolicyOutput(T_init, weight_mask, stats.diff_mean_num_non0, stats,
                                 mean_all_pts)
@@ -287,6 +294,8 @@ class LearnICPWeightPolicy:
                                           max_iterations=max(m.max_iter * 5, 50), dim=2)
             T_est = icp_implicit(batch_scan["filtered_pc"], batch_map["pc"], T_init, weights,
                                  cfg_icp, mesh)
+            profiling.mark("icp.fwd")
+            profiling.grad_mark(T_est, "loss.bwd")
             return PolicyOutput(T_est, weight_mask, stats.diff_mean_num_non0, stats,
                                 mean_all_pts)
         result = icp(
@@ -295,7 +304,21 @@ class LearnICPWeightPolicy:
                                     dim=2),
             mesh=mesh,
         )
+        profiling.mark("icp.fwd")
+        profiling.grad_mark(result["T"], "loss.bwd")
         info = {k: v for k, v in result.items() if k != "T"}
         return PolicyOutput(
             result["T"], weight_mask, stats.diff_mean_num_non0, stats, mean_all_pts, info)
 
+    def _normalized(self, weight_mask: torch.Tensor, binary: bool) -> torch.Tensor:
+        """The mask's per-image max normalisation (``norm_weights``) and, with
+        ``binary``, its threshold at 0.5."""
+        m = self.cfg.model
+        if m.norm_weights:
+            # The minimum keeps the mask ≤ 1 where a division overshoots by an
+            # ulp; like jnp.minimum it splits the cotangent at a tie.
+            weight_mask = torch.minimum(weight_mask / _safe_amax_hw(weight_mask),
+                                        weight_mask.new_ones(()))
+        if binary:
+            weight_mask = (weight_mask > 0.5).to(weight_mask.dtype)
+        return weight_mask

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from mm_masking_tpu_torch.ops.kernels._build import launch, use_kernel
+from mm_masking_tpu_torch.utils import profiling
 
 NN_ROWS = 256  # scan rows per tile of the dense launch
 # Map points per unit of the kernel's work, dense and stripe: a stripe's live
@@ -264,6 +265,16 @@ def stripe_blocks(p: torch.Tensor, key_sorted: torch.Tensor, use_x: torch.Tensor
     return start_blk.to(torch.int32), nblk.to(torch.int32)
 
 
+def _count_stripe(over: torch.Tensor, refresh: torch.Tensor | None) -> None:
+    """The device counters of a stripe call: ``nn.stripe_searched`` counts the
+    calls in which some item searched, ``nn.stripe_over`` those of them that
+    went over the budget and scanned the whole map (``over`` holds only
+    where an item searched)."""
+    searched = profiling.device_counter("nn.stripe_searched", over.device)
+    searched.add_(1 if refresh is None else refresh.any())
+    profiling.device_counter("nn.stripe_over", over.device).add_(over)
+
+
 def nn_argmin_stripe_presorted(
     p: torch.Tensor,
     q_sorted: torch.Tensor,
@@ -283,7 +294,8 @@ def nn_argmin_stripe_presorted(
     values. q4: optional :func:`map_layout` of q_sorted, hoisted out of the
     solver loop. Where no block size tm ∈ {1024, 512, 256, 128} divides both
     M and the window, the call runs dense (K1); otherwise it launches the
-    stripe kernel (K4), over the whole map when a tile is over budget.
+    stripe kernel (K4), over the whole map when a tile is over budget; the
+    device counters of :func:`_count_stripe` count the stripe calls.
     """
     B, N, _ = p.shape
     M = q_sorted.shape[1]
@@ -311,6 +323,8 @@ def nn_argmin_stripe_presorted(
     if refresh is not None:
         over &= refresh[:, None]
     over = over.any()
+    if not torch.compiler.is_exporting():
+        _count_stripe(over, refresh)
     start_blk = torch.where(over, 0, start_blk)
     nblk = torch.where(over, M // tm, nblk)
     if refresh is not None:

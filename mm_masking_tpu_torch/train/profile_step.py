@@ -11,15 +11,20 @@ step's CUDA graph, and after two warm-up steps of each path prints:
    and on the eager kernel path (``ops.kernels.eager()``);
 2. one step of each path under ``torch.profiler``: the host's launch calls
    (kernels and graphs), the device's busy time (the union of the kernels'
-   spans) and its idle share of that path's uninstrumented median step, the
-   kernel count, the device time by kernel group and the top kernels; where
-   the profiler shows no kernels of a graph's replay, the graph path's busy
-   time is taken as not measured; then 1 and 2 for ``Trainer.eval_step`` on
-   a synthetic batch of ``train.batch_size_test`` (32) pairs, whose solve
-   replays its own graphs;
-3. the host-clock time of each phase (UNet forward, ICP forward, loss,
-   backward, optimizer) on the eager path, each ended by a synchronise, so
-   their sum exceeds a free step;
+   spans) and its idle share of the traced step's own span (from its
+   ``mm.<kind>.step`` annotation's start to the later of its end and the
+   last device operation's), the kernel count, the device time by kernel
+   group and the top kernels; where the profiler shows no kernels of a
+   graph's replay, the graph path's busy time is taken as not measured;
+   then 1 and 2 for ``Trainer.eval_step`` on a synthetic batch of
+   ``train.batch_size_test`` (32) pairs, whose solve replays its own
+   graphs;
+3. the device time of each phase of the train step from the phase marks
+   captured in its graph (``utils.profiling.phase_ms``), the median of 3
+   replays: the UNet forward with the weight lookup, the ICP forward, the
+   loss, the backward and the optimizer, and the backward split into the
+   loss's, the ICP's, the lookup's and the UNet's; on the CPU the marks
+   are the host clock of the eager step;
 4. the peak device memory, the graph's capture and memory pool included.
 
 ``--set section.field=value`` overrides the config as in the training CLI;
@@ -32,20 +37,18 @@ import argparse
 import contextlib
 import statistics
 import time
-from unittest import mock
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-import mm_masking_tpu_torch.models.policy as policy_module
-import mm_masking_tpu_torch.train.trainer as trainer_module
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.device import resolve_device
 from mm_masking_tpu_torch.ops.kernels import eager
 from mm_masking_tpu_torch.train.train_icp_weights import apply_overrides
 from mm_masking_tpu_torch.train.trainer import Trainer
+from mm_masking_tpu_torch.utils import profiling
 
 # Kernel-name fragment → group, first match wins.
 GROUPS = (
@@ -65,6 +68,12 @@ GROUPS = (
     ("elementwise", "elementwise"),
 )
 FREE_STEPS, TOP_KERNELS = 7, 25
+# The five phases of the train step, each the sum of the phase marks named
+# (``Trainer._step``), and the backward's split.
+PHASES = {"unet_forward": ("unet.fwd", "lookup.fwd"), "icp_forward": ("icp.fwd",),
+          "loss": ("loss.fwd",), "backward": ("loss.bwd", "icp.bwd", "lookup.bwd", "unet.bwd"),
+          "optimizer": ("optim",)}
+BACKWARD = {"loss": "loss.bwd", "icp": "icp.bwd", "lookup": "lookup.bwd", "unet": "unet.bwd"}
 
 
 def _sync(device: torch.device) -> None:
@@ -77,16 +86,25 @@ def _group(name: str) -> str:
     return next((g for frag, g in GROUPS if frag in low), "other")
 
 
-def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float, int]:
-    """({kernel name: (launches, ms)}, busy ms as the union of kernel spans,
-    the host's launch calls: kernels and graphs)."""
+def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float, int, float | None]:
+    """({kernel name: (launches, ms)}, busy ms as the union of kernel spans
+    (the program's spans, which the profiler also draws on the device's
+    timeline, left out), the host's launch calls: kernels and graphs, and
+    the traced steps' span in ms: from the first ``mm.*.step`` annotation's
+    start to the later of the last one's end and the last kernel's; None
+    without a step annotation)."""
     rows: dict[str, tuple[int, float]] = {}
     spans = []
     host_launches = 0
+    steps = []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             host_launches += "launch" in e.name.lower() and e.name.startswith("cu")
+            if e.name in ("mm.train.step", "mm.eval.step"):
+                steps.append((e.time_range.start, e.time_range.end))
             continue
+        if getattr(e, "is_user_annotation", False) or e.name.startswith("mm."):
+            continue  # a span's copy on the device's timeline, not a kernel
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
         n, t = rows.get(e.name, (0, 0.0))
@@ -99,7 +117,11 @@ def device_summary(prof) -> tuple[dict[str, tuple[int, float]], float, int]:
         else:
             cur[1] = max(cur[1], end)
     busy += 0.0 if cur is None else cur[1] - cur[0]
-    return rows, busy / 1e3, host_launches
+    window = None
+    if steps:
+        window = (max([end for _, end in steps] + [end for _, end in spans])
+                  - min(start for start, _ in steps)) / 1e3
+    return rows, busy / 1e3, host_launches, window
 
 
 def profile_paths(label: str, steps, device: torch.device) -> tuple[dict, dict]:
@@ -124,21 +146,21 @@ def profile_paths(label: str, steps, device: torch.device) -> tuple[dict, dict]:
     for path, ctx in paths.items():
         with ctx(), profile(activities=activities) as prof:
             (wall,) = steps(1)
-        rows, busy, host_launches = device_summary(prof)
+        rows, busy, host_launches, window = device_summary(prof)
         launches = sum(n for n, _ in rows.values())
         total = sum(t for _, t in rows.values())
         out[path] = {"busy_ms": busy if launches else None, "launches": launches,
-                     "host_launches": host_launches}
+                     "host_launches": host_launches, "window_ms": window}
         if not launches:
             print(f"profiled {path} step: host clock {wall:.1f} ms, {host_launches} host "
                   f"launch calls; device time not measured (no CUDA kernels traced on "
                   f"{device})")
             continue
-        step = statistics.median(free[path])
+        idle = "not measured" if window is None else f"{100 * (1 - busy / window):.1f}%"
         print(f"profiled {path} step: {host_launches} host launch calls, {launches} kernels, "
-              f"device busy {busy:.1f} ms (summed kernel time {total:.1f} ms), idle "
-              f"{100 * (1 - busy / step):.1f}% of the uninstrumented median step; the "
-              f"profiled step took {wall:.1f} ms on the host clock")
+              f"device busy {busy:.1f} ms (summed kernel time {total:.1f} ms), idle {idle} "
+              f"of the traced step's span; the profiled step took {wall:.1f} ms on the host "
+              f"clock")
         groups: dict[str, tuple[int, float]] = {}
         for name, (n, t) in rows.items():
             gn, gt = groups.get(_group(name), (0, 0.0))
@@ -194,37 +216,25 @@ def main(argv=None) -> dict:
         f"eval_step B={cfg.train.batch_size_test}",
         timer(lambda: trainer.eval_step(state.params, eval_batch)), device)
 
-    phases: dict[str, list[float]] = {}
+    marked: list[dict[str, float]] = []
+    for _ in range(3):
+        trainer.train_step(state, batch)
+        marked.append(profiling.phase_ms())
 
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            _sync(device)
-            t0 = time.perf_counter()
-            out = fn(*a, **k)
-            _sync(device)
-            phases.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-            return out
-        return wrapper
+    def median(names) -> float:
+        return statistics.median(sum(m.get(n, 0.0) for n in names) for m in marked)
 
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(eager())  # a synchronise cannot be captured in a graph
-        for target, attr, name in (
-            (trainer.policy, "compute_mask", "unet_forward"),
-            (policy_module, "icp", "icp_forward"),
-            (trainer_module, "eval_training_loss", "loss"),
-            (torch.autograd, "grad", "backward"),
-            (state.opt, "step", "optimizer"),
-        ):
-            stack.enter_context(mock.patch.object(target, attr,
-                                                  timed(name, getattr(target, attr))))
-        synced = steps(3)
-    phase_ms = {k: statistics.median(v) for k, v in phases.items()}
-    print(f"phases, median of 3 synchronised steps (step {statistics.median(synced):.1f} "
-          f"ms): " + ", ".join(f"{k} {v:.2f} ms" for k, v in phase_ms.items()))
+    phase_ms = {k: median(names) for k, names in PHASES.items()}
+    backward_ms = {k: median((name,)) for k, name in BACKWARD.items()}
+    clock = "device" if device.type == "cuda" else "host"
+    print(f"phases, {clock} ms from the step's marks, median of 3 steps (sum "
+          f"{sum(phase_ms.values()):.2f} ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in phase_ms.items())
+          + "; backward: " + ", ".join(f"{k} {v:.2f}" for k, v in backward_ms.items()))
     peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else None
     print(f"peak device memory: {'not measured' if peak is None else f'{peak:.0f} MiB'}")
     return {"step_ms": free, "profiled": prof_out, "eval_ms": eval_free, "eval_profiled": eval_prof,
-            "phases_ms": phase_ms, "peak_mib": peak,
+            "phases_ms": phase_ms, "backward_ms": backward_ms, "peak_mib": peak,
             "launches": sum(p["launches"] for p in [*prof_out.values(), *eval_prof.values()])}
 
 

@@ -68,6 +68,7 @@ from mm_masking_tpu_torch.train.loss import (
 )
 from mm_masking_tpu_torch.train.metrics import MetricsLogger
 from mm_masking_tpu_torch.train.optim import Optimizer, make_optimizer
+from mm_masking_tpu_torch.utils import profiling
 from mm_masking_tpu_torch.utils.visualize import save_mask_image
 
 
@@ -90,6 +91,7 @@ class TrainState:
 class _TrainGraph:
     inputs: list[torch.Tensor]  # static batch leaves, in _leaves order
     step: CapturedStep
+    marks: profiling.Phases  # the phase marks captured in the graph
 
 
 def to_device(batch, device: torch.device):
@@ -136,6 +138,7 @@ class Trainer:
         self.logger = logger or MetricsLogger(cfg.train.checkpoint_dir)
         self._trained = [name for name, _ in self.policy.unet.named_parameters()]
         self._pool = None  # the memory pool its train-step graphs share
+        self._marks = profiling.Phases(self.device)  # the eager train step's phase marks
 
     def local_batch(self, batch) -> tuple[dict, Mesh | None, tuple[int, int] | None]:
         """This rank's rows of a batch on the trainer's device, the mesh its
@@ -181,14 +184,20 @@ class Trainer:
         into the graph's inputs. A failed capture raises.
 
         ``batch``: the global batch (or a :class:`ShardedBatch` of this
-        rank's rows); under a mesh each rank steps on its rows."""
-        self._check_graphs()
-        batch, mesh, rows = self.local_batch(batch)
-        if use_graphs(self.device):
-            loss, comp, grad_norm = self._replay_train_step(state, batch, mask_losses_active,
-                                                            mesh, rows)
-        else:
-            loss, comp, grad_norm = self._step(state, batch, mask_losses_active, mesh, rows)
+        rank's rows); under a mesh each rank steps on its rows.
+
+        The step is a step record and span ``mm.train.step``; the phases of
+        its work are marked (:func:`profiling.phase_ms`)."""
+        with profiling.step("train"):
+            self._check_graphs()
+            batch, mesh, rows = self.local_batch(batch)
+            if use_graphs(self.device):
+                loss, comp, grad_norm = self._replay_train_step(state, batch,
+                                                                mask_losses_active, mesh, rows)
+            else:
+                with profiling.phases(self._marks):
+                    loss, comp, grad_norm = self._step(state, batch, mask_losses_active, mesh,
+                                                       rows)
         state.step += 1
         return state, loss, comp, grad_norm
 
@@ -197,8 +206,13 @@ class Trainer:
         """The step's work, run eagerly or captured: forward with dropout,
         loss, gradients (summed over the ``mesh`` as one flat buffer),
         grad_norm and the optimizer's update; nothing in it reads the device
-        from the host."""
+        from the host. Its phase marks, in order: ``start``; the policy's
+        ``unet.fwd``, ``lookup.fwd``, ``icp.fwd``; ``loss.fwd``; the
+        backward's ``loss.bwd``, ``icp.bwd``, ``lookup.bwd`` (the gradient
+        reaching the pose, the weights, the mask) and ``unet.bwd`` (its end);
+        ``optim`` (the gradient norm and the update)."""
         cfg = self.cfg
+        profiling.mark("start")
         out = self.policy.apply(
             state.params, batch["loc_data"], batch["map_data"],
             batch["transforms"]["T_ml_init"], train=True, generator=state.generator,
@@ -211,7 +225,9 @@ class Trainer:
             cart_pixel_width=cfg.model.cart_pixel_width,
             cart_resolution=cfg.model.cart_resolution, mesh=mesh,
         )
+        profiling.mark("loss.fwd")
         grads = torch.autograd.grad(loss, [state.params[n] for n in self._trained])
+        profiling.mark("unet.bwd")
         if mesh is not None:
             flat = torch.cat([g.reshape(-1) for g in grads])
             torch.distributed.all_reduce(flat, group=mesh.group)
@@ -220,6 +236,7 @@ class Trainer:
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         state.opt.step(grads)
+        profiling.mark("optim")
         return loss.detach(), comp, grad_norm
 
     def capture_train_step(self, state: TrainState, batch: dict,
@@ -243,11 +260,15 @@ class Trainer:
     def _replay_train_step(self, state: TrainState, batch: dict, mask_losses_active: bool,
                            mesh: Mesh | None, rows: tuple[int, int] | None):
         graph = self._train_graph(state, batch, mesh, rows, mask_losses_active)
-        for dst, (_, src) in zip(graph.inputs, _leaves(batch)):
-            dst.copy_(src)
-        loss, comp, grad_norm = graph.step.replay()
-        # Copies: the next replay overwrites the graph's outputs.
-        return loss.clone(), LossComponents(*(c.clone() for c in comp)), grad_norm.clone()
+        with profiling.span("mm.train.copy_in"):
+            for dst, (_, src) in zip(graph.inputs, _leaves(batch)):
+                dst.copy_(src)
+        with profiling.span("mm.train.replay"):
+            loss, comp, grad_norm = graph.step.replay()
+        profiling.replayed(graph.marks)
+        with profiling.span("mm.train.copy_out"):
+            # Copies: the next replay overwrites the graph's outputs.
+            return loss.clone(), LossComponents(*(c.clone() for c in comp)), grad_norm.clone()
 
     def _capture_train_step(self, state: TrainState, batch: dict, mask_losses_active: bool,
                             mesh: Mesh | None, rows: tuple[int, int] | None) -> _TrainGraph:
@@ -272,31 +293,40 @@ class Trainer:
 
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        step = CapturedStep(lambda: self._step(state, static, mask_losses_active, mesh, rows),
-                            self.device, undo=undo, generators=(state.generator,),
+        marks = profiling.Phases(self.device)
+
+        def fn():
+            with profiling.phases(marks):
+                return self._step(state, static, mask_losses_active, mesh, rows)
+
+        step = CapturedStep(fn, self.device, undo=undo, generators=(state.generator,),
                             pool=self._pool)
-        return _TrainGraph([t for _, t in _leaves(static)], step)
+        return _TrainGraph([t for _, t in _leaves(static)], step, marks)
 
     # ------------------------------------------------------------- eval step
     @torch.inference_mode()
     def eval_step(self, params: dict, batch: dict, binary: bool = False):
         """One inference step → (err (3,), WeightStats, weight_mask (B, H, W)).
         Under a mesh the error and the statistics are the global batch's
-        (the poses gathered), and the mask is this rank's rows."""
-        self._check_graphs()
-        batch, mesh, _ = self.local_batch(batch)
-        out = self.policy.apply(
-            params,
-            batch["loc_data"],
-            batch["map_data"],
-            batch["transforms"]["T_ml_init"],
-            train=False,
-            binary=binary,
-            mesh=mesh,
-        )
-        err = eval_validation_loss(
-            out.T_pred, batch["transforms"]["T_ml_gt"], gt_eye=self.cfg.model.gt_eye,
-            mesh=mesh)
+        (the poses gathered), and the mask is this rank's rows. The step is
+        a step record and span ``mm.eval.step``; the policy's and the
+        solve's spans lie inside it, then ``mm.eval.loss``."""
+        with profiling.step("eval"):
+            self._check_graphs()
+            batch, mesh, _ = self.local_batch(batch)
+            out = self.policy.apply(
+                params,
+                batch["loc_data"],
+                batch["map_data"],
+                batch["transforms"]["T_ml_init"],
+                train=False,
+                binary=binary,
+                mesh=mesh,
+            )
+            with profiling.span("mm.eval.loss"):
+                err = eval_validation_loss(
+                    out.T_pred, batch["transforms"]["T_ml_gt"], gt_eye=self.cfg.model.gt_eye,
+                    mesh=mesh)
         return err, out.stats, out.weight_mask
 
     # ------------------------------------------------------------ public API
@@ -503,6 +533,7 @@ class Trainer:
                                  "trans": float(err[2])})
 
         for epoch in range(state.epoch, num_epochs):
+            wait0 = profiling.host_count("loader.wait_ns")
             tic = time.time()
             state, mean_loss, comp = self.train_epoch(state, train_batches_fn(epoch), epoch)
             train_time = time.time() - tic
@@ -526,6 +557,7 @@ class Trainer:
                 "mean_num_pc": mean_num_pc, "mean_w": mean_w,
                 "max_w": max_w, "min_w": min_w,
                 "epoch_train_time": train_time, "epoch_val_time": val_time,
+                "loader_wait_s": (profiling.host_count("loader.wait_ns") - wait0) / 1e9,
                 "train_init_baseline": tr_init, "train_ones_baseline": tr_ones,
                 "val_init_baseline": va_init, "val_ones_baseline": va_ones,
                 "best_norm": best_norm,

@@ -1,13 +1,13 @@
-"""Run artifacts, the uploader and the span timer of the port
+"""Run artifacts, the uploader and the Chrome trace of the port
 (``mm_masking_tpu_torch.utils``) against the JAX package's on the CPU.
 
 A tiny ``fit`` in each package, each streaming to a stub HTTP collector on
 127.0.0.1: the same artifact file names, every PNG of the port's decodable
 (matplotlib reads them here), and the same records uploaded in the same
 order. The uploader's payloads equal JAX's call for call; with no URL it
-sends nothing, and a dead collector never raises. ``SpanTimer.summary()``
-has JAX's keys, ``trace`` writes a Chrome trace, and the plotting functions
-take JAX's arguments and return JAX's paths.
+sends nothing, and a dead collector never raises. ``trace`` writes a Chrome
+trace, and the plotting functions take JAX's arguments and return JAX's
+paths.
 """
 from __future__ import annotations
 
@@ -16,7 +16,6 @@ import http.server
 import json
 import os
 import threading
-import time
 
 import matplotlib.pyplot as plt
 import numpy as np
@@ -30,14 +29,13 @@ from mm_masking_tpu.parallel import make_mesh
 from mm_masking_tpu.train.metrics import MetricsLogger as JMetricsLogger
 from mm_masking_tpu.train.trainer import Trainer as JTrainer
 from mm_masking_tpu.utils import visualize as jvis
-from mm_masking_tpu.utils.profiling import SpanTimer as JSpanTimer
 from mm_masking_tpu.utils.upload import ExperimentUploader as JUploader
 from mm_masking_tpu_torch.config import Config, ModelConfig, TrainConfig
 from mm_masking_tpu_torch.data import SyntheticSpec, synthetic_batch
 from mm_masking_tpu_torch.train import Trainer
 from mm_masking_tpu_torch.train.metrics import MetricsLogger
 from mm_masking_tpu_torch.utils import visualize
-from mm_masking_tpu_torch.utils.profiling import SpanTimer, trace
+from mm_masking_tpu_torch.utils.profiling import trace
 from mm_masking_tpu_torch.utils.upload import ENV_URL, ExperimentUploader
 from test_torch_e2e_product import one_thread  # noqa: F401
 
@@ -178,19 +176,6 @@ def test_uploader_never_raises_into_the_run(capsys):
     assert up.log_event("r", {"a": 1}) is False and up.log_event("r", {"a": 2}) is False
     assert not up.enabled and up.log_event("r", {"a": 3}) is False
     assert capsys.readouterr().err.count("[upload] POST failed") == 2
-
-
-def test_span_timer_summary_has_the_jax_keys():
-    timers = (SpanTimer(), JSpanTimer())
-    for t in timers:
-        with t.span("load", n_samples=4):
-            time.sleep(0.001)
-        with t.span("step"):
-            pass
-    port, jax_ = (t.summary() for t in timers)
-    assert list(port) == list(jax_) == ["load_total_s", "step_total_s", "load_per_sample_s",
-                                        "step_per_sample_s"]
-    assert port["load_per_sample_s"] == pytest.approx(port["load_total_s"] / 4)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
