@@ -25,9 +25,9 @@ Per iteration:
   4. weights: trim × robust × caller weight × source-pad mask;
   5. the weighted normal equations; ``dim=2`` solves only (x, y, yaw).
 
-Nothing in an iteration reads the device from the host: the stripe
-budget test is a select on the device, and the inference loop counts its
-iterations there, each item's too (``ran``), and adds them to the device
+Nothing in an iteration reads the device from the host: each stripe tile's
+run of map blocks is computed on the device, and the inference loop counts
+its iterations there, each item's too (``ran``), and adds them to the device
 counters ``icp.item_iters`` and ``icp.item_slots`` (items × iterations
 computed; :mod:`mm_masking_tpu_torch.utils.profiling`). The inference loop
 runs in chunks of ``STOP_TEST_EVERY`` iterations and reads its stop test
@@ -83,7 +83,7 @@ class ICPConfig:
     target_pad_val: float = TARGET_PAD_VAL
     use_pallas_nn: bool | None = None  # TPU kernel choice; ignored by the port
     nn_stripe: bool | None = None  # None = auto (on when the map has ≥ 4096 points)
-    nn_stripe_window: int = 0  # 0 = auto (M/4)
+    nn_stripe_window: int = 0  # 0 = auto (M/4); tm divides it; ≥ M runs dense
     nn_stripe_tile: int = 256
     max_step_m: float = 0.0  # trust-region clamp on the step's translation
     remat_iters: bool = False  # training memory knob; ignored by the port

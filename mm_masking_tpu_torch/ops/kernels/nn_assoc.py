@@ -19,11 +19,16 @@ the units finish.
 The sorted stripe: the map is sorted once per solve along its widest planar
 axis; a tile of scan rows grouped by that key only needs the contiguous run
 of map points whose key lies within the tile's key span ± trim. Each tile
-scans that run, rounded out to blocks of ``tm``; if any tile needs more
-blocks than the static budget ``window // tm + 1``, every tile scans the
-whole map, which gives the dense result. That choice is a select on the
-device, so the dispatcher reads nothing back to the host. Within trim the
-result equals the dense one.
+scans its own run, rounded out to blocks of ``tm``, however long: up to the
+whole map, which gives the dense result. The kernel's grid gives every tile
+units over the whole map, and the units past a tile's run leave at once, so
+a long run costs no more than a dense scan and the short ones cost only
+their blocks. (The JAX package's TPU kernel has a static grid of
+``window // tm + 1`` blocks a tile, past which the whole batch runs dense;
+the port keeps that budget only as a count, :func:`_count_stripe`.) The
+dispatcher reads nothing back to the host. Within trim the result equals
+the dense one: a map point within trim of a scan point has a key within
+trim of the point's, so it lies in the point's tile's run.
 
 Both launches go through custom operators (``mm_masking::nn_argmin`` and
 ``mm_masking::nn_stripe``, ``torch.library.custom_op`` with fake versions),
@@ -265,14 +270,27 @@ def stripe_blocks(p: torch.Tensor, key_sorted: torch.Tensor, use_x: torch.Tensor
     return start_blk.to(torch.int32), nblk.to(torch.int32)
 
 
-def _count_stripe(over: torch.Tensor, refresh: torch.Tensor | None) -> None:
-    """The device counters of a stripe call: ``nn.stripe_searched`` counts the
-    calls in which some item searched, ``nn.stripe_over`` those of them that
-    went over the budget and scanned the whole map (``over`` holds only
-    where an item searched)."""
-    searched = profiling.device_counter("nn.stripe_searched", over.device)
+def _count_stripe(nblk: torch.Tensor, budget: int, blocks: int,
+                  refresh: torch.Tensor | None) -> None:
+    """The device counters of a stripe call, from its tiles' runs ``nblk``
+    (B, T), 0 for the items that do not search: ``nn.stripe_searched``
+    counts the calls in which some item searched, ``nn.stripe_over`` those
+    of them in which some tile's run exceeds ``budget`` blocks (where the
+    JAX package's kernel would scan the whole map for the whole batch);
+    ``nn.blocks_scanned`` adds the blocks the tiles scan, Σ nblk, and
+    ``nn.blocks_dense`` those a dense scan of the searching tiles would,
+    their number × ``blocks``."""
+    dev = nblk.device
+    B, T = nblk.shape
+    searched = profiling.device_counter("nn.stripe_searched", dev)
     searched.add_(1 if refresh is None else refresh.any())
-    profiling.device_counter("nn.stripe_over", over.device).add_(over)
+    profiling.device_counter("nn.stripe_over", dev).add_((nblk > budget).any())
+    profiling.device_counter("nn.blocks_scanned", dev).add_(nblk.sum())
+    dense = profiling.device_counter("nn.blocks_dense", dev)
+    if refresh is None:
+        dense.add_(B * T * blocks)
+    else:
+        dense.add_(refresh.sum(), alpha=T * blocks)
 
 
 def nn_argmin_stripe_presorted(
@@ -292,10 +310,12 @@ def nn_argmin_stripe_presorted(
     refresh: optional (B,) bool; items with False do no association at all
     (nblk 0) and their idx/d2 are garbage — the caller keeps its cached
     values. q4: optional :func:`map_layout` of q_sorted, hoisted out of the
-    solver loop. Where no block size tm ∈ {1024, 512, 256, 128} divides both
-    M and the window, the call runs dense (K1); otherwise it launches the
-    stripe kernel (K4), over the whole map when a tile is over budget; the
-    device counters of :func:`_count_stripe` count the stripe calls.
+    solver loop. Where the window covers the map, p is one tile, or no block
+    size tm ∈ {1024, 512, 256, 128} divides both M and the window, the call
+    runs dense (K1); otherwise it launches the stripe kernel (K4), each
+    searching tile over its own run of :func:`stripe_blocks`, whatever its
+    length; the device counters of :func:`_count_stripe` count the stripe
+    calls and their blocks.
     """
     B, N, _ = p.shape
     M = q_sorted.shape[1]
@@ -314,20 +334,11 @@ def nn_argmin_stripe_presorted(
         # window is unaffected (zero rows would inject key 0).
         p = torch.cat([p, p[:, -1:].expand(B, n_pad, 3)], dim=1)
     start_blk, nblk = stripe_blocks(p, key_sorted, use_x, trim_dist, tn, tm)
-    # The reference's lax.cond, as a select on the device: when any tile of
-    # an item that searches needs more blocks than the budget, every tile
-    # scans the whole sorted map from block 0, which is the dense result.
-    # +1: a block-aligned cover of a run of `window` points can straddle a
-    # block boundary at both ends.
-    over = nblk > window // tm + 1
-    if refresh is not None:
-        over &= refresh[:, None]
-    over = over.any()
-    if not torch.compiler.is_exporting():
-        _count_stripe(over, refresh)
-    start_blk = torch.where(over, 0, start_blk)
-    nblk = torch.where(over, M // tm, nblk)
     if refresh is not None:
         nblk = torch.where(refresh[:, None], nblk, 0)
-    idx, d2 = nn_stripe(p, q3, start_blk.to(torch.int32), nblk.to(torch.int32), tm, q4)
+    if not torch.compiler.is_exporting():
+        # +1: a block-aligned cover of a run of `window` points can straddle
+        # a block boundary at both ends.
+        _count_stripe(nblk, window // tm + 1, M // tm, refresh)
+    idx, d2 = nn_stripe(p, q3, start_blk, nblk, tm, q4)
     return idx[:, :N], d2[:, :N]

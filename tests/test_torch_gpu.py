@@ -142,8 +142,7 @@ def test_stripe_dispatcher_matches_plain(cuda):
     p = (q_s[:, :3800:7][:, :500] + 0.3).contiguous()
     gate = torch.tensor([True, False, True], device=cuda)
     # window 2048: each tile scans its own blocks; 256: the tiles outgrow the
-    # budget, and K4 scans the whole map (the dense result), chosen on the
-    # device.
+    # old budget of window // tm + 1 blocks, and still scan their own runs.
     for window in (2048, 256):
         reset_launch_counts()
         idx, d2 = tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, 5.0,
@@ -157,9 +156,71 @@ def test_stripe_dispatcher_matches_plain(cuda):
     assert torch.equal(idx[gate], idx_d[gate]) and torch.equal(d2[gate], d2_d[gate])
 
 
+def mixed_stripe_case(device, seed=12, B=3, N=256, M=2048):
+    """A sorted map for each of B items (1900 real points in a 120 m square,
+    an exact duplicate, pad rows at 1000) and a scan: item 0's is unsorted,
+    so each of its tiles spans the whole map; the others' are map points
+    moved ~0.5 m, grouped by key. Returns (p, q_sorted, key_sorted, use_x)
+    on ``device``."""
+    rng = np.random.default_rng(seed)
+    q = np.full((B, M, 3), 1000.0, np.float32)
+    q[:, :1900, :2] = rng.uniform(-60, 60, (B, 1900, 2))
+    q[:, :1900, 2] = 0.0
+    q[:, 700] = q[:, 300]  # an exact duplicate: the first occurrence must win
+    q_s, key_s, use_x = tnn.stripe_sort_target(torch.from_numpy(q))
+    p = torch.from_numpy(rng.uniform(-60, 60, (B, N, 3)).astype(np.float32))
+    p[..., 2] = 0.0
+    p[1:] = q_s[1:, :1900:7][:, :N] + torch.from_numpy(
+        rng.normal(0, 0.5, (B - 1, N, 3)).astype(np.float32))
+    key = torch.where(use_x[:, None], p[..., 0], p[..., 1])
+    p[1:] = torch.gather(p[1:], 1, key[1:].argsort(dim=1, stable=True)[..., None].expand(-1, -1, 3))
+    return tuple(t.contiguous().to(device) for t in (p, q_s, key_s, use_x))
+
+
+@pytest.mark.parametrize("refresh", [None, [True, False, True]])
+def test_stripe_dispatcher_scans_each_tiles_run(cuda, refresh):
+    """The dispatcher's case of ``tests/test_torch_kernels.py`` (item 0's
+    tiles over the old budget, the others grouped by key) on the card: one
+    K4 launch and no synchronising call; every searching row K4's idx and d2
+    bits against the plain version's; within trim, and in the tiles whose
+    run is the whole map, K1's."""
+    p, q_s, key_s, use_x = mixed_stripe_case(cuda)
+    B, N, M = p.shape[0], p.shape[1], q_s.shape[1]
+    trim, tn, window, tm = 3.0, 64, 512, 512
+    gate = None if refresh is None else torch.tensor(refresh, device=cuda)
+    live = torch.ones(B, dtype=torch.bool, device=cuda) if gate is None else gate
+
+    def call():
+        return tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, trim, window=window,
+                                              tn=tn, refresh=gate)
+
+    call()  # builds the kernels and makes the device counters
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        idx, d2 = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launch_counts()["nn_stripe"] == 1 and sum(launch_counts().values()) == 1
+    with plain_versions():
+        idx_p, d2_p = call()
+    rows = live[:, None].expand(B, N)
+    assert torch.equal(idx[rows], idx_p[rows]) and same_bits(d2[rows], d2_p[rows])
+    idx_d, d2_d = tnn.nn_argmin(p, q_s)
+    near = rows & (d2_d < trim ** 2)
+    assert near[live].float().mean() > 0.9
+    assert torch.equal(idx[near], idx_d[near]) and same_bits(d2[near], d2_d[near])
+    start, nblk = tnn.stripe_blocks(p, key_s, use_x, trim, tn, tm)
+    assert (nblk[0] > window // tm + 1).all()
+    whole = ((start == 0) & (nblk == M // tm)).repeat_interleave(tn, dim=1) & rows
+    assert whole[0].all() and not whole[1:].all()
+    assert torch.equal(idx[whole], idx_d[whole]) and same_bits(d2[whole], d2_d[whole])
+
+
 def test_full_range_stripe_scan_is_the_dense_kernel(cuda):
-    """K4 over every block from block 0 (the over-budget select) gives the
-    dense kernel's indices and the same d2 bits; ties go to the first map
+    """K4 over every block from block 0 (a tile whose run is the whole map)
+    gives the dense kernel's indices and the same d2 bits; ties go to the first map
     row."""
     rng = np.random.default_rng(15)
     B, N, M, tn, tm = 3, 1024, 8192, 256, 1024

@@ -27,6 +27,7 @@ from mm_masking_tpu.dicp.icp import _solve3x3 as jsolve3x3
 from mm_masking_tpu_torch.dicp import ICP, TARGET_PAD_VAL, ICPConfig, icp, icp_implicit
 from mm_masking_tpu_torch.dicp.icp import _implicit_weight_grad, _solve3x3, _solve_frozen
 from mm_masking_tpu_torch.geom import se3_exp
+from mm_masking_tpu_torch.ops.kernels import nn_assoc as tnn
 from test_torch_e2e_product import one_thread  # noqa: F401
 from test_torch_train import no_host_reads
 
@@ -259,6 +260,73 @@ def test_unrolled_icp_weight_gradient_matches_jax(icp_type, stripe):
     assert np.abs(j_grad).max() > 0
     np.testing.assert_allclose(t_grad.numpy(), j_grad, rtol=0,
                                atol=1e-3 * np.abs(j_grad).max())
+
+
+def run_scene(seed, B=2, M=2048, n_real=1900, trim=3.0):
+    """A planar corridor map (x spans 120 m, y 10 m, so the stripe keys on x)
+    with normals and pad rows, and a scan of 4 dense clusters of 64 points,
+    248 points strewn over the map's upper half and 8 points 15 m off it
+    (past trim), taken through a small planar pose and sorted by x, the key
+    at the identity initial guess: the stripe keeps the scan's row order.
+    Returns (src, tgt, T_init, weight)."""
+    rng = np.random.default_rng(seed)
+    q = np.full((B, M, 6), TARGET_PAD_VAL, np.float32)
+    q[:, :n_real, 0] = np.sort(rng.uniform(-60, 60, (B, n_real)), axis=1)
+    q[:, :n_real, 1] = rng.uniform(-5, 5, (B, n_real))
+    q[:, :n_real, 2] = 0.0
+    ang = rng.uniform(0, 2 * np.pi, (B, n_real))
+    q[:, :n_real, 3:6] = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+    picks = np.concatenate([np.arange(c, c + 64) for c in (100, 400, 700, 900)]
+                           + [np.linspace(1000, n_real - 1, 248).astype(int)])
+    pts = q[:, picks, :3] + rng.normal(0, 0.01, (B, len(picks), 3)).astype(np.float32)
+    off = q[:, rng.choice(np.arange(1000, n_real), 8), :3] + np.float32([0.0, 15.0, 0.0])
+    pts = np.concatenate([pts, off], 1)
+    xi = np.zeros((B, 6), np.float32)
+    xi[:, :2] = rng.uniform(-0.4, 0.4, (B, 2))
+    xi[:, 5] = rng.uniform(-0.05, 0.05, B)
+    T_gt_inv = torch.linalg.inv(se3_exp(torch.from_numpy(xi))).numpy()
+    src = np.einsum("bij,bnj->bni", T_gt_inv[:, :3, :3], pts) + T_gt_inv[:, None, :3, 3]
+    src[..., 2] = 0.0
+    src = np.take_along_axis(src, np.argsort(src[..., 0], axis=1, kind="stable")[..., None], 1)
+    src = np.ascontiguousarray(src, dtype=np.float32)
+    weight = rng.uniform(0.2, 1.0, src.shape[:2]).astype(np.float32)
+    T_init = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
+    return src, q, T_init, weight
+
+
+@pytest.mark.parametrize("icp_type", ["pt2pt", "pt2pl"])
+def test_stripe_runs_give_the_dense_solve_bit_for_bit(icp_type):
+    """With each stripe tile scanning its own run of map blocks (runs past
+    the old budget among them), the planar solve is the dense association's
+    bit for bit: the tolerance-stopped solve's T, iterations and delta_norm,
+    and the unrolled solve's T and gradient with respect to the weights.
+    Every row with a neighbour within trim gets the dense neighbour; every
+    other row is inactive either way."""
+    src, tgt, T_init, weight = run_scene(seed=31 if icp_type == "pt2pt" else 32)
+    args = (torch.from_numpy(src), torch.from_numpy(tgt), torch.from_numpy(T_init))
+    base = dict(icp_type=icp_type, trim_dist=3.0, dim=2, nn_stripe_window=128,
+                nn_stripe_tile=64)
+    q_s, key_s, use_x = tnn.stripe_sort_target(args[1])
+    assert use_x.all()  # the scan is sorted by the key: the solve keeps its rows' order
+    _, nblk = tnn.stripe_blocks(args[0], key_s, use_x, 3.0, 64, 128)
+    assert (nblk > 128 // 128 + 1).any() and (nblk <= 2).any()  # some tiles over the window
+    solve = dict(base, max_iterations=50, tolerance=1e-5, differentiable=False)
+    got = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(**solve, nn_stripe=True))
+    want = icp(*args, weight=torch.from_numpy(weight), cfg=ICPConfig(**solve, nn_stripe=False))
+    assert 0 < int(want["iterations"]) < 50
+    for name in ("T", "iterations", "delta_norm"):
+        assert torch.equal(got[name], want[name]), name
+    cot = torch.from_numpy(np.random.default_rng(33).standard_normal((2, 4, 4)).astype(np.float32))
+    unrolled = dict(base, max_iterations=5, differentiable=True)
+    outs = []
+    for stripe in (True, False):
+        w = torch.from_numpy(weight).requires_grad_(True)
+        out = icp(*args, weight=w, cfg=ICPConfig(**unrolled, nn_stripe=stripe))
+        (grad,) = torch.autograd.grad((out["T"] * cot).sum(), (w,))
+        outs.append((out["T"].detach(), grad))
+    (T_s, g_s), (T_d, g_d) = outs
+    assert torch.equal(T_s, T_d) and torch.equal(g_s, g_d)
+    assert g_d.abs().max() > 0
 
 
 @pytest.mark.parametrize("damped_dead", [False, True])

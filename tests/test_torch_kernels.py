@@ -34,6 +34,7 @@ from mm_masking_tpu_torch.ops.kernels.conv2d import (
     pack_weight_bf16,
 )
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
+from test_torch_gpu import mixed_stripe_case
 
 
 ULP = 2.0 ** -23  # one float32 ulp, relative
@@ -841,21 +842,18 @@ def no_host_reads():
 
 @pytest.mark.parametrize("refresh", [None, [True, False, True]])
 def test_stripe_dispatcher_over_budget_scans_the_whole_map(monkeypatch, refresh):
-    """An item whose scan spans the whole map puts a tile over the block
-    budget: the dispatcher then hands K4 block 0 and every block, with no
-    read from the device (the reference's lax.cond as a select), and that
-    full-range stripe scan gives the dense result bit for bit. Items the
-    refresh gate skips search nothing."""
-    rng = np.random.default_rng(12)
+    """Item 0's unsorted scan puts each of its tiles over the old budget of
+    window // tm + 1 blocks (the JAX package's, past which its whole batch
+    runs dense); items 1 and 2 are grouped by key. The dispatcher hands K4
+    each searching tile's own run of :func:`stripe_blocks`, item 0's whole
+    map among them, and 0 blocks to items the refresh gate skips, with no
+    read from the device. Within trim every row gets the dense plain
+    version's idx and d2 bits and the JAX reference's idx; a tile whose run
+    is the whole map gets the dense result bit for bit in every row."""
     B, N, M, trim, tn, window = 3, 256, 2048, 3.0, 64, 512
-    q = np.full((B, M, 3), 1000.0, np.float32)
-    q[:, :1900, :2] = rng.uniform(-60, 60, (B, 1900, 2))
-    q[:, :1900, 2] = 0.0
-    q[:, 700] = q[:, 300]  # an exact duplicate: the first occurrence must win
-    q_s, key_s, use_x = tnn.stripe_sort_target(torch.from_numpy(q))
-    p = torch.from_numpy(rng.uniform(-60, 60, (B, N, 3)).astype(np.float32))
-    p[..., 2] = 0.0  # unsorted: every tile spans the map
+    p, q_s, key_s, use_x = mixed_stripe_case("cpu", B=B, N=N, M=M)
     gate = None if refresh is None else torch.tensor(refresh)
+    live = torch.ones(B, dtype=torch.bool) if gate is None else gate
     calls = []
 
     def k4(p_, q3, start, nblk, tm, q4=None):
@@ -873,17 +871,27 @@ def test_stripe_dispatcher_over_budget_scans_the_whole_map(monkeypatch, refresh)
         tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, trim, window=window, tn=tn,
                                        refresh=gate)
     (name, start, nblk, tm), = calls
-    live = torch.ones(B, dtype=torch.bool) if gate is None else gate
     assert tm == 512 and start.dtype == nblk.dtype == torch.int32
-    assert (start == 0).all()
-    assert (nblk[live] == M // tm).all() and (nblk[~live] == 0).all()
+    want_start, want_nblk = tnn.stripe_blocks(p, key_s, use_x, trim, tn, tm)
+    budget = window // tm + 1
+    assert (want_nblk[0] > budget).all() and (want_nblk[1:] <= budget).any()
+    assert (want_start[0] == 0).all() and (want_nblk[0] == M // tm).all()
+    assert torch.equal(start[live], want_start[live])
+    assert torch.equal(nblk[live], want_nblk[live]) and (nblk[~live] == 0).all()
     idx, d2 = tnn.nn_stripe_plain(p, q_s, start, nblk, tm)
     idx_d, d2_d = tnn.nn_argmin_plain(p, q_s)
-    rows = live[:, None].expand(B, N)
+    near = live[:, None] & (d2_d < trim ** 2)
+    assert near[live].float().mean() > 0.9
+    np.testing.assert_array_equal(idx[near].numpy(), idx_d[near].numpy())
+    assert torch.equal(d2[near].view(torch.int32), d2_d[near].view(torch.int32))
+    idx_j, _ = jnn.nn_argmin_pallas(jnp.asarray(p.numpy()), jnp.asarray(q_s.numpy()),
+                                    tn=128, tm=512, interpret=True)
+    np.testing.assert_array_equal(idx[near].numpy(), np.asarray(idx_j)[near.numpy()])
+    whole = (start == 0) & (nblk == M // tm)  # tiles whose run is the whole map
+    rows = whole.repeat_interleave(tn, dim=1)
+    assert rows[0].all() and not rows[1:].all()
     np.testing.assert_array_equal(idx[rows].numpy(), idx_d[rows].numpy())
-    assert torch.equal(d2[rows], d2_d[rows])  # the same bits
-    idx_j, d2_j = jnn.nn_argmin_pallas(jnp.asarray(p.numpy()), jnp.asarray(q_s.numpy()),
-                                       tn=128, tm=512, interpret=True)
+    assert torch.equal(d2[rows].view(torch.int32), d2_d[rows].view(torch.int32))
     np.testing.assert_array_equal(idx[rows].numpy(), np.asarray(idx_j)[rows.numpy()])
 
 

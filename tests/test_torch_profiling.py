@@ -266,6 +266,40 @@ def test_stripe_counters_see_a_call_over_the_budget():
     assert call(scattered, refresh=one) == {"nn.stripe_searched": 1, "nn.stripe_over": 1}
 
 
+@pytest.mark.parametrize("refresh", [None, [False, True]])
+def test_stripe_block_counters_match_a_hand_count(refresh):
+    """``nn.blocks_scanned`` adds the map blocks of each searching tile's run
+    and ``nn.blocks_dense`` the searching tiles × M / tm, counted here tile
+    by tile in numpy: half the scan grouped by key (short runs), half
+    scattered (runs of the whole map); a skipped item adds to neither."""
+    g = torch.Generator().manual_seed(5)
+    B, M, N, tn, tm, trim = 2, 4096, 1024, 128, 512, 0.5
+    x = torch.rand((B, M), generator=g) * 400.0
+    q = torch.stack([x, torch.rand((B, M), generator=g) * 10.0, torch.zeros(B, M)], -1)
+    q_sorted, key, use_x = stripe_sort_target(q)
+    p = torch.cat([q_sorted[:, ::8], q[:, :N // 2]], 1).contiguous()
+    gate = None if refresh is None else torch.tensor(refresh)
+    names = ("nn.blocks_scanned", "nn.blocks_dense")
+    before = profiling.counters()
+    nn_argmin_stripe_presorted(p, q_sorted, key, use_x, trim_dist=trim, window=tm, tn=tn,
+                               refresh=gate)
+    got = delta(before, names)
+    keys, pk = key.numpy(), p[..., 0].numpy()
+    scanned = dense = 0
+    for b in range(B):
+        if refresh is not None and not refresh[b]:
+            continue
+        for t in range(N // tn):
+            k = pk[b, t * tn:(t + 1) * tn]
+            first = np.searchsorted(keys[b], k.min() - np.float32(trim), "left")
+            end = np.searchsorted(keys[b], k.max() + np.float32(trim), "left")
+            start = min(first // tm, M // tm - 1)
+            scanned += max(-(-end // tm) - start, 1)
+            dense += M // tm
+    assert got == {"nn.blocks_scanned": scanned, "nn.blocks_dense": dense}
+    assert 0 < scanned < dense
+
+
 # ------------------------------------------------------------------ loader
 class SlowItems:
     """Polar items whose loading takes ``delay`` seconds each."""
