@@ -35,7 +35,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from perfbench import cells, check, drive, faults, generator  # noqa: E402
-from perfbench.reference import policy as reference  # noqa: E402
 
 
 def seeds(spec: str) -> list[int]:
@@ -50,7 +49,8 @@ def control(cell: cells.Cell, seed: int, device: torch.device) -> dict[str, floa
     """The lower-precision reference against the reference, on a run's inputs."""
     cfg = cell.config["config"]
     model = cfg["model"]
-    start = generator.xavier_params(reference.param_shapes(model["enc_channels"]), seed, device)
+    reference = cell.reference
+    start = reference.start_params(model, seed, device)
     pool = generator.make_pool(seed, model, cfg["data"], cell.batch, cell.traffic, device)
     if cell.mode == "train":
         dropout_seed = generator.derive_seed(seed, drive.DROPOUT)

@@ -3,7 +3,9 @@
 Everything that belongs to one configuration, one traffic mix, one metric
 or one cell's limits is a file of its own, found by its name:
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``metrics/<metric>.py`` and ``limits/<cell>.json``.
+``metrics/<metric>.py`` and ``limits/<cell>.json``. A configuration's
+reference is ``reference/<config>.py`` where it has one of its own, and
+``reference/policy.py`` otherwise.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -25,6 +28,7 @@ class Cell:
     end_to_end: list[dict]  # the BENCHMARK.json entries of the metrics it reports
     per_layer: list[dict]
     limits: dict[str, float]
+    reference: ModuleType  # the configuration's reference (``reference/__init__.py``)
 
     @property
     def mode(self) -> str:
@@ -61,14 +65,27 @@ def load(name: str) -> Cell:
                 config=_read(HERE / "configs" / f"{w['config']}.json"),
                 traffic=_read(HERE / "traffic" / f"{w['traffic']}.json"),
                 end_to_end=e2e, per_layer=per_layer,
-                limits=_read(HERE / "limits" / f"{name}.json"))
+                limits=_read(HERE / "limits" / f"{name}.json"),
+                reference=reference(w["config"]))
+
+
+def _module(path: Path, module_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def reader(metric: str):
     """The ``read(run)`` function of ``metrics/<metric>.py``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    module_name = "perfbench_metric_" + metric.replace(".", "_")
-    spec = importlib.util.spec_from_file_location(module_name, path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _module(HERE / "metrics" / f"{metric}.py",
+                   "perfbench_metric_" + metric.replace(".", "_")).read
+
+
+def reference(config: str) -> ModuleType:
+    """The reference of the configuration ``config``: ``reference/<config>.py``
+    where that file exists, ``reference/policy.py`` otherwise."""
+    path = HERE / "reference" / f"{config}.py"
+    if not path.is_file():
+        path = HERE / "reference" / "policy.py"
+    return _module(path, "perfbench_reference_" + path.stem.replace(".", "_").replace("-", "_"))

@@ -32,7 +32,6 @@ import numpy as np
 import torch
 
 from perfbench import cells, check, generator, trace
-from perfbench.reference import policy as reference
 
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "mm_masking_tpu")
 CORRECT_STEPS = 3  # train steps that the reference follows
@@ -122,17 +121,18 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, traced: bool,
     from mm_masking_tpu_torch.train.trainer import Trainer
 
     cfg_dict = cell.config["config"]
+    reference = cell.reference
     reference.check_config(cfg_dict)
     model, data = cfg_dict["model"], cfg_dict["data"]
     trainer = Trainer(Config.from_dict(cfg_dict), device)
     dropout_seed = generator.derive_seed(seed, DROPOUT)
     state = trainer.init_state(seed=dropout_seed)
     log(f"trainer at {time.perf_counter() - t_start:.1f} s")
-    shapes = reference.param_shapes(model["enc_channels"])
+    start = reference.start_params(model, seed, device)
+    shapes = {k: tuple(v.shape) for k, v in start.items()}
     have = {k: tuple(v.shape) for k, v in state.params.items()}
     if have != shapes:
-        raise RuntimeError(f"the program's parameters {have} are not the UNet's {shapes}")
-    start = generator.xavier_params(shapes, seed, device)
+        raise RuntimeError(f"the program's parameters {have} are not the reference's {shapes}")
     with torch.no_grad():
         for k, v in start.items():
             state.params[k].copy_(v)

@@ -48,7 +48,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from perfbench.generator import pad_crossover, polar_warp_grid
+from perfbench.generator import pad_crossover, polar_warp_grid, xavier_params
 
 TRIM_M = 5.0
 CAUCHY_K = 1.0
@@ -114,6 +114,12 @@ def param_shapes(enc_channels, in_channels: int = 1) -> dict[str, tuple[int, ...
     shapes["final.weight"] = (1, enc[0], 1, 1)
     shapes["final.bias"] = (1,)
     return shapes
+
+
+def start_params(model: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """The UNet's starting parameters from the seed: Xavier-uniform kernels
+    and zero biases."""
+    return xavier_params(param_shapes(model["enc_channels"]), seed, device)
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:

@@ -18,7 +18,6 @@ import pytest
 import torch
 
 from perfbench import cells, drive, generator, trace, work
-from perfbench.reference import policy as reference
 from perfbench.tests import tiny
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -47,7 +46,35 @@ def test_config_file_loads_into_the_programs_config(config):
         for key, value in data["config"][block].items():
             got = getattr(getattr(cfg, block), key)
             assert (list(got) if isinstance(got, tuple) else got) == value, (block, key)
-    reference.check_config(data["config"])
+    cells.reference(config).check_config(data["config"])
+
+
+def test_a_config_with_a_reference_of_its_own_is_checked_against_it(tmp_path, monkeypatch):
+    ref = tmp_path / "reference"
+    ref.mkdir()
+    for stem in ("policy", "gated"):
+        (ref / f"{stem}.py").write_text(
+            "def check_config(cfg):\n"
+            f"    raise NotImplementedError('checked by {stem}.py')\n")
+    monkeypatch.setattr(cells, "HERE", tmp_path)
+    with pytest.raises(NotImplementedError, match="checked by gated.py"):
+        cells.reference("gated").check_config({})
+    with pytest.raises(NotImplementedError, match="checked by policy.py"):
+        cells.reference("plain").check_config({})
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_each_cell_takes_its_configs_reference_and_starts_from_the_seed(name):
+    cell = cells.load(name)
+    config = next(w["config"] for w in BENCH["workloads"] if w["name"] == name)
+    own = ROOT / "perfbench" / "reference" / f"{config}.py"
+    assert Path(cell.reference.__file__) == (own if own.is_file() else own.with_name("policy.py"))
+    model = tiny.cell(name).config["config"]["model"]
+    big = 2**31 + 7
+    a, b, other = (cell.reference.start_params(model, s, "cpu") for s in (big, big, big + 1))
+    assert list(a) == list(b) == list(other)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not all(torch.equal(a[k], other[k]) for k in a)
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -12,9 +12,8 @@ import pytest
 from perfbench import cells, drive, program
 from mm_masking_tpu_torch.utils import profiling
 
-EVAL_METRICS = ("stop_reads.eval", "stop_wait_ms.eval", "host_ms.eval", "solve_useful_pct.eval",
-                "nn_stripe_fit_pct.eval")
-TRAIN_METRICS = ("nn_stripe_fit_pct.train", "icp_ms.train", "unet_ms.train")
+EVAL_METRICS = ("stop_reads.eval", "stop_wait_ms.eval", "host_ms.eval", "solve_useful_pct.eval")
+TRAIN_METRICS = ("icp_ms.train", "unet_ms.train")
 
 
 def _run(mode, **kw):
@@ -83,10 +82,7 @@ def test_ratios_read_the_counters(fake):
                    "nn.stripe_over": 45})
     ev, tr = _run("eval", steps=4), _run("train", steps=4)
     assert cells.reader("solve_useful_pct.eval")(ev) == pytest.approx(75.0)
-    assert cells.reader("nn_stripe_fit_pct.eval")(ev) == pytest.approx(10.0)
-    assert cells.reader("nn_stripe_fit_pct.train")(tr) == pytest.approx(10.0)
-    assert cells.reader("nn_stripe_fit_pct.train")(ev) is None
-    assert cells.reader("nn_stripe_fit_pct.eval")(tr) is None
+    assert cells.reader("solve_useful_pct.eval")(tr) is None
 
 
 @pytest.mark.parametrize("counters", [{}, {"icp.item_iters": 3, "nn.stripe_over": 2},
@@ -94,10 +90,7 @@ def test_ratios_read_the_counters(fake):
                                       {"icp.item_steps": 9, "nn.stripe_calls": 9}])
 def test_a_ratio_whose_denominator_is_zero_or_renamed_reads_none(fake, counters):
     fake(counters=counters)
-    ev, tr = _run("eval", steps=4), _run("train", steps=4)
-    assert cells.reader("solve_useful_pct.eval")(ev) is None
-    assert cells.reader("nn_stripe_fit_pct.eval")(ev) is None
-    assert cells.reader("nn_stripe_fit_pct.train")(tr) is None
+    assert cells.reader("solve_useful_pct.eval")(_run("eval", steps=4)) is None
 
 
 def test_train_phases_read_the_marks(fake):

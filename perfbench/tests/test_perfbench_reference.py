@@ -33,11 +33,11 @@ def _run_tiny(name: str, dtype: str = "float32", seed: int = SEED) -> dict:
 
 
 @pytest.mark.parametrize("name", ["cart640-bf16-pt2pl.train", "cart640-bf16-pt2pl.eval",
-                                  "polar3360-f32-pt2pt.train"])
+                                  "polar3360-f32-pt2pt.train", "polar3360-f32-pt2pt.eval"])
 def test_reference_computes_what_the_program_computes_in_float32(name):
     """pt2pl with the mask BCE and the point-count hinge (cartesian), pt2pt
-    with the mask's polar warp, and the tolerance-stopped solve: in float32
-    the reference follows the program to round-off."""
+    with the mask's polar warp, and the tolerance-stopped solve on both
+    inputs: in float32 the reference follows the program to round-off."""
     numbers = _run_tiny(name)
     assert all(v < tiny.ROUND_OFF for v in numbers.values()), numbers
 
@@ -58,7 +58,8 @@ def test_control_reads_above_the_program_in_bfloat16():
 
 @pytest.mark.parametrize("name, fault", [
     (name, fault)
-    for name in ("cart640-bf16-pt2pl.train", "cart640-bf16-pt2pl.eval", "polar3360-f32-pt2pt.train")
+    for name in ("cart640-bf16-pt2pl.train", "cart640-bf16-pt2pl.eval",
+                 "polar3360-f32-pt2pt.train", "polar3360-f32-pt2pt.eval")
     for fault in sorted(faults.FAULTS)
     if not (fault == "unchanged" and name.endswith(".eval"))  # an eval step has no state
 ])
