@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 - --time-nn < path/to/chip_smoke.py       # from another tree's root
     python3 - --time-lookup < path/to/chip_smoke.py   # likewise
+    python3 chip_smoke.py --time-mask
 
 ``--time-nn`` only builds that tree's kernels and times its K1 and K4 on this
 script's inputs, as phase 3 does, through the wrappers' public names: a
@@ -11,6 +12,9 @@ parent commit's kernels timed the same way as this one's. ``--time-lookup``
 does the same for the point lookup's backward (``bilinear_points_bwd``) on
 the inputs of one eager train step of each type, as phase 3 times it, and
 profiles the float32 call kernel by kernel beside ``grid_sampler_2d_backward``.
+``--time-mask`` times the conv backward's ReLU mask and bias gradient
+(``relu_bias_bwd``) over one train step's calls of the cartesian bfloat16
+and the polar float32 UNet, beside the plain version and the bound.
 
 Phases, each printed as it runs; any failure raises and exits non-zero:
 
@@ -81,9 +85,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 6. train   ``Trainer.train_step`` at the default ``Config()`` (dropout 0.05,
            10 unrolled ICP iterations, Adam at 1e-4) on a 16-item synthetic
            batch of 4096 / 16384 points: the step captured as a CUDA graph,
-           then 3 replays. The counters must show every conv forward, dx and
-           dk, both axes of every upsample's backward, one lookup backward
-           and at least 10 NN launches per step; loss, gradients and
+           then 3 replays. The counters must show every conv forward, dx,
+           dk and mask-and-bias backward (``relu_bias_bwd``), both axes of
+           every upsample's backward, one lookup backward and at least 10
+           NN launches per step; loss, gradients and
            updated parameters must be finite; each replay must match an
            eager kernel-path step from the state it started from (loss and
            grad_norm within 1e-6 relative, parameters within 1e-5 of max
@@ -274,7 +279,13 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from mm_masking_tpu_torch.benchmarks import e2e_product, probe_conv
-from mm_masking_tpu_torch.benchmarks.timing import bound_ms, cuda_ms, graph_ms, in_turns
+from mm_masking_tpu_torch.benchmarks.timing import (
+    HBM_BYTES_PER_S,
+    bound_ms,
+    cuda_ms,
+    graph_ms,
+    in_turns,
+)
 from mm_masking_tpu_torch.config import Config
 from mm_masking_tpu_torch.data import (
     ICPWeightDataset,
@@ -1105,6 +1116,64 @@ def time_lookup(device, cfg: Config) -> None:
                         f"{k} {t:.2f} us" for k, t in by.items()))
 
 
+def time_mask(device, log_lines: str) -> None:
+    """``--time-mask``: the conv backward's ReLU mask and bias gradient
+    (``relu_bias_bwd``) over one train step's calls at B = 16, one a conv:
+    the cartesian 640² UNet in bfloat16 and the polar 400 x 3360 one in
+    float32. Each distinct shape is held against its plain version (dy_m bit
+    for bit, db within 1e-5 of a float64 sum), then the kernel and the plain
+    version (the compare, cast, multiply, float32 copy and sum it replaces)
+    are replayed from CUDA graphs in turns, beside the bound by bytes (y and
+    dy read, dy_m written, once each). Then the kernel alone at B = 16, 16 x
+    640², bfloat16, against its bound. ``log_lines``: nvcc's log of this
+    build, whose ptxas lines for the kernel are printed."""
+    from mm_masking_tpu_torch.ops.kernels.conv2d import relu_bias_bwd, relu_bias_bwd_plain
+
+    ours = False
+    for line in log_lines.splitlines():
+        if "Compiling entry" in line:
+            ours = "relu_bias_bwd" in line
+        if ours and ("ptxas" in line or "spill" in line):
+            log("build", line.strip())
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    g = torch.Generator(device=device).manual_seed(27)
+
+    def calls(Co, H, W, dtype):
+        y = torch.randn(TRAIN_BATCH, Co, H, W, generator=g, device=device).to(dtype)
+        dy = torch.randn(TRAIN_BATCH, Co, H, W, generator=g, device=device).to(dtype)
+        return (lambda: relu_bias_bwd(y, dy, True)), (lambda: relu_bias_bwd_plain(y, dy, True))
+
+    for label, width, dtype in (("cart 640 bfloat16", 640, torch.bfloat16),
+                                ("polar 400x3360 float32", POLAR_SHAPE, torch.float32)):
+        shapes = [stage(s)[1:] for s in conv3x3_shapes(width=width)]
+        rows = {}
+        for shape in sorted(set(shapes)):
+            kernel, plain = calls(*shape, dtype)
+            (got, db), (want, db_plain) = kernel(), plain()
+            db64 = want.double().sum((0, 2, 3))
+            err = ((db.double() - db64).abs().max() / db64.abs().max()).item()
+            if not torch.equal(got.view(bits[dtype]), want.view(bits[dtype])) or err > 1e-5:
+                raise AssertionError(f"relu_bias_bwd {label} {shape}: dy_m not the plain "
+                                     f"version's bits, or db {err:.2e} from a float64 sum")
+            k, p = in_turns(plain, kernel, graph_ms)
+            bound = 3 * got.numel() * got.element_size() / HBM_BYTES_PER_S * 1e3
+            rows[shape] = (k, p, bound)
+            log("kernels", f"relu_bias_bwd {label} B={TRAIN_BATCH} {shape}: kernel {k:.4f} ms "
+                f"replayed, plain {p:.4f}, bound {bound:.4f} (bytes), db {err:.2e} from a "
+                f"float64 sum")
+            del kernel, plain, got, db, want, db_plain
+            torch.cuda.empty_cache()
+        k, p, bound = (sum(rows[s][i] for s in shapes) for i in range(3))
+        log("kernels", f"relu_bias_bwd {label}, one train step's {len(shapes)} calls (ms): "
+            f"kernel {k:.4f} replayed, plain {p:.4f}, bound {bound:.4f} (bytes): "
+            f"{100 * bound / k:.1f}% of the bound")
+    kernel, _ = calls(16, 640, 640, torch.bfloat16)
+    k = graph_ms(kernel)
+    bound = 3 * TRAIN_BATCH * 16 * 640 * 640 * 2 / HBM_BYTES_PER_S * 1e3
+    log("kernels", f"relu_bias_bwd B={TRAIN_BATCH} 16 x 640^2 bfloat16: kernel {k:.4f} ms "
+        f"replayed, bound {bound:.4f} (bytes): {100 * bound / k:.1f}% of the bound")
+
+
 def most(t: torch.Tensor) -> float:
     """The largest element, NaN for an empty tensor."""
     return t.max().item() if t.numel() else float("nan")
@@ -1340,7 +1409,7 @@ def captured_steps(trainer: Trainer, batch, label: str):
     # The lookup backward: the weights', and a polar mask's warp to cartesian.
     n_lookup = 1 + (cfg.model.network_output_type == "polar")
     want = {"conv3x3": n_conv, "conv3x3_dx": n_conv - 1, "conv3x3_dk": n_conv,
-            "resize_bwd": 2 * n_up, "bilinear_points_bwd": n_lookup}
+            "relu_bias_bwd": n_conv, "resize_bwd": 2 * n_up, "bilinear_points_bwd": n_lookup}
     for name, n in want.items():
         if counts[name] != TRAIN_STEPS * n:
             raise AssertionError(f"expected {TRAIN_STEPS * n} {name} launches, got "
@@ -3030,6 +3099,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--time-lookup"]:
         time_lookup(device, Config())
+        return 0
+    if sys.argv[1:] == ["--time-mask"]:
+        time_mask(device, info.log)
         return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:

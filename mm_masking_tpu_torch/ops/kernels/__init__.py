@@ -13,7 +13,8 @@ eagerly on the kernels instead, again for comparison runs only, and
 Each wrapper counts its kernel launches in a plain integer attribute
 (``conv3x3.launches`` …), read with :func:`launch_counts`. The conv's three
 jobs count apart: ``conv3x3`` (K2, forward), ``conv3x3_dx`` (K2 as the
-backward's dx) and ``conv3x3_dk`` (K3, the weight gradient). The conv-probe
+backward's dx) and ``conv3x3_dk`` (K3, the weight gradient); its backward's
+ReLU mask and bias gradient count as ``relu_bias_bwd``. The conv-probe
 kernels P1–P4 count as ``conv3x3_nhcw``, ``conv3x3_nhcw_run:<variant>`` (one
 counter for each of P2's five variants), ``conv3x3_nhcw_v2`` and
 ``conv3x3_flat``. The gather-form backwards of the upsample and the point
@@ -31,6 +32,7 @@ _WRAPPERS = {
     "conv3x3": conv2d.conv3x3,
     "conv3x3_dx": conv2d.conv3x3_dx,
     "conv3x3_dk": conv2d.conv3x3_dk,
+    "relu_bias_bwd": conv2d.relu_bias_bwd,
     "nn_stripe": nn_assoc.nn_stripe,
     "nn_argmin": nn_assoc.nn_argmin,
     "conv3x3_nhcw": conv_probes.conv3x3_nhcw,

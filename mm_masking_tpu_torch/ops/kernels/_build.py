@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 
 SMEM_LIMIT = 232_448  # shared bytes a block may opt into on the H100
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # x, w, bias, y, B, Ci, Co, H, W, relu, stream (f32: conv3x3_tc.cu,
     # bf16: conv3x3_bf16_tc.cu)
@@ -58,6 +58,10 @@ _SIGNATURES = {
     # relu, vec, stream (bf16)
     "mm_probe_flat_f32": [_P, _P, _P] + [_I] * 10 + [_P],
     "mm_probe_flat_mma_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
+    # y, dy, dy_m, partial, db, B, C, H·W, dy's batch stride, n_slabs, relu,
+    # stream (relu_bias_bwd.cu)
+    "mm_relu_bias_bwd_f32": [_P] * 5 + [_I] * 3 + [_L, _I, _I, _P],
+    "mm_relu_bias_bwd_bf16": [_P] * 5 + [_I] * 3 + [_L, _I, _I, _P],
     # dy, w0, w1, off, dx, outer, n_in, n_out, inner, stream (resize_bwd.cu)
     "mm_resize_bwd_f32": [_P] * 5 + [_I] * 4 + [_P],
     "mm_resize_bwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -75,6 +79,8 @@ _HOST = {
     # Ci, Co → shared bytes of one block of K3's kernel (f32, bf16)
     "mm_conv3x3_dk_f32_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     "mm_conv3x3_dk_bf16_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+    # B, C, H·W → slabs a channel of the conv backward's mask and bias sum
+    "mm_relu_bias_bwd_slabs": ([_I] * 3, _I),
     # Co, W → shared bytes of one block of the f32 conv (K2)
     "mm_conv3x3_f32_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     # Ci, Co → shared bytes of one block of the bf16 conv (K2)

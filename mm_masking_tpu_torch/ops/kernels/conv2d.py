@@ -11,14 +11,17 @@ package's NHCW layout existed only to fill the TPU's 128 lanes. Inputs are
 float32 or bfloat16; the forward and dx round the weight to their input's
 type, as the reference rounds ``kmat`` (``conv2d.py:236``, ``:263``), and
 keep the bias in float32; accumulation is float32 and each result has its
-operand's type.
+operand's type. Beside them, the backward's ReLU mask and bias gradient run
+as one more kernel, ``csrc/relu_bias_bwd.cu`` (:func:`relu_bias_bwd`), which
+replaces no Pallas kernel: the JAX package leaves them to XLA's fusion.
 
 :func:`conv3x3` is a ``torch.autograd.Function`` on every device. Only its
-three innermost calls dispatch: :func:`conv3x3_forward` (K2),
-:func:`conv3x3_dx` (K2 on dy with the rotated, transposed weight) and
-:func:`conv3x3_dk` (K3) launch their kernel on CUDA tensors and run their
-plain version on CPU tensors, so the CPU tests run the backward's own logic.
-Each of the three counts its launches.
+innermost calls dispatch: :func:`conv3x3_forward` (K2),
+:func:`relu_bias_bwd` (the mask and db), :func:`conv3x3_dx` (K2 on dy with
+the rotated, transposed weight) and :func:`conv3x3_dk` (K3) launch their
+kernel on CUDA tensors and run their plain version on CPU tensors, so the
+CPU tests run the backward's own logic. Each of the four counts its
+launches.
 
 K2's forward launches through the custom operator ``mm_masking::conv3x3``
 (``torch.library.custom_op``, with a fake version that gives the output's
@@ -36,6 +39,7 @@ _ENTRY = {torch.float32: "mm_conv3x3_f32", torch.bfloat16: "mm_conv3x3_bf16"}
 # K3's entry and the host function that sizes its scratch, by input type.
 _DK_ENTRY = {torch.float32: ("mm_conv3x3_dk_f32", "mm_conv3x3_dk_chunks"),
              torch.bfloat16: ("mm_conv3x3_dk_bf16", "mm_conv3x3_dk_bf16_chunks")}
+_MASK_ENTRY = {torch.float32: "mm_relu_bias_bwd_f32", torch.bfloat16: "mm_relu_bias_bwd_bf16"}
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -168,10 +172,49 @@ def conv3x3_dk(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dk
 
 
+def relu_bias_bwd_plain(y: torch.Tensor, dy: torch.Tensor, relu: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain mask and bias gradient: dy·(y > 0) under a fused ReLU, made
+    contiguous, and its float32 sum over (B, H, W)."""
+    if relu:
+        dy = dy * (y > 0).to(dy.dtype)
+    dy = dy.contiguous()
+    return dy, dy.float().sum((0, 2, 3))
+
+
+def relu_bias_bwd(y: torch.Tensor, dy: torch.Tensor, relu: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The conv backward's first step: y, dy (B, Co, H, W) → (dy_m, db):
+    dy_m = dy·(y > 0) under a fused ReLU (exact), else dy, contiguous; db
+    (Co,) float32 = Σ dy_m over (B, H, W), in a fixed order: two runs give
+    the same bits. The kernel reads a dy whose planes are contiguous (a
+    channel slice of a cat's cotangent) in place."""
+    if not use_kernel(y, dy):
+        return relu_bias_bwd_plain(y, dy, relu)
+    if dy.dtype not in _MASK_ENTRY or y.dtype != dy.dtype:
+        raise TypeError(f"relu_bias_bwd kernel takes y and dy both float32 or both bfloat16, "
+                        f"got {y.dtype} and {dy.dtype}")
+    if dy.shape != y.shape or dy.ndim != 4:
+        raise ValueError(f"dy {tuple(dy.shape)} does not fit y {tuple(y.shape)}")
+    B, C, H, W = dy.shape
+    if dy.stride()[1:] != (H * W, W, 1):
+        dy = dy.contiguous()
+    y = y.contiguous()
+    n_slabs = library().mm_relu_bias_bwd_slabs(B, C, H * W)
+    partial = torch.empty((C, n_slabs), dtype=torch.float32, device=dy.device)
+    db = torch.empty(C, dtype=torch.float32, device=dy.device)
+    dy_m = torch.empty_like(y) if relu else None
+    launch(_MASK_ENTRY[dy.dtype], dy.device, y.data_ptr(), dy.data_ptr(),
+           dy_m.data_ptr() if relu else None, partial.data_ptr(), db.data_ptr(), B, C, H * W,
+           dy.stride(0), n_slabs, int(relu))
+    relu_bias_bwd.launches += 1
+    return (dy_m if relu else dy.contiguous()), db
+
+
 class _Conv3x3(torch.autograd.Function):
     """The conv's VJP, as the JAX package's ``_conv_bwd``: under a fused ReLU
-    dy ← dy·(y > 0); dx by K2 on the rotated, transposed weight (only when x
-    needs a gradient); dk by K3; db = Σ dy in float32."""
+    dy ← dy·(y > 0), and db = Σ dy in float32 (one kernel); dx by K2 on the
+    rotated, transposed weight (only when x needs a gradient); dk by K3."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, relu):
@@ -184,16 +227,13 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight, y = ctx.saved_tensors
-        if ctx.relu:
-            dy = dy * (y > 0).to(dy.dtype)
-        dy = dy.contiguous()
-        dx = dk = db = None
+        dy, db = relu_bias_bwd(y, dy, ctx.relu)
+        dx = dk = None
         if ctx.needs_input_grad[0]:
             dx = conv3x3_dx(dy, weight)
         if ctx.needs_input_grad[1]:
             dk = conv3x3_dk(x, dy).to(weight.dtype)
-        if ctx.needs_input_grad[2]:
-            db = dy.float().sum((0, 2, 3)).to(weight.dtype)
+        db = db.to(weight.dtype) if ctx.needs_input_grad[2] else None
         return dx, dk, db, None
 
 
@@ -216,3 +256,4 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 conv3x3.launches = 0
 conv3x3_dx.launches = 0
 conv3x3_dk.launches = 0
+relu_bias_bwd.launches = 0

@@ -58,6 +58,7 @@ GROUPS = (
     ("nn_argmin", "nn_argmin (K4 / K1)"),
     ("resize_bwd", "resize_bwd (upsample backward)"),
     ("bilinear_points_bwd", "bilinear_points_bwd (lookup backward)"),
+    ("relu_bias_bwd", "relu_bias_bwd (conv backward's mask and bias gradient)"),
     ("grid_sampler_2d_backward", "grid_sampler_2d_backward"),
     ("indexfunc", "index_add / index_select"),
     ("max_pool", "max-pool"),

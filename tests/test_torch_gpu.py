@@ -56,6 +56,8 @@ from mm_masking_tpu_torch.ops.kernels.conv2d import (
     conv3x3_dx,
     conv3x3_dx_plain,
     conv3x3_plain,
+    relu_bias_bwd,
+    relu_bias_bwd_plain,
 )
 from mm_masking_tpu_torch.train import Trainer
 
@@ -372,6 +374,57 @@ def test_conv3x3_kernels_match_plain_at_the_polar_stages(cuda, Ci, Co, H, W, dty
     assert rel_err(dk, dk64) <= 1e-5
 
 
+def mask_shapes(width) -> list[tuple[int, int, int]]:
+    """(Co, H, W) of each conv output of the UNet on ``width``."""
+    return sorted({(s[1], s[2], s[-1]) for s in conv3x3_shapes(width=width)})
+
+
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Co,H,W", [(2, *s) for s in mask_shapes(640) + mask_shapes(POLAR)]
+                         + [(16, 16, 640, 640)])
+def test_relu_bias_bwd_kernel_matches_plain(cuda, monkeypatch, B, Co, H, W, dtype):
+    """The conv backward's mask and bias gradient at every conv output of
+    the cartesian 640² and the polar 400 x 3360 UNet (B = 2), and at B = 16,
+    16 x 640², with and without ReLU, on dy contiguous and as a channel
+    slice of a wider tensor (read in place: the kernel gets its pointer):
+    dy_m is the plain version's bit for bit (signed zeros, NaN and
+    infinities planted, polar planes no multiple of 16 bytes), db within
+    1e-5 of a float64 sum of it, non-finite where that is, and a second call
+    gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(Co * H + W)
+    y = torch.randn(B, Co, H, W, generator=g, device=cuda).to(dtype)
+    wide = torch.randn(B, Co + 2, H, W, generator=g, device=cuda).to(dtype)
+    nan, inf = float("nan"), float("inf")
+    y[-1, -1, -1, :8] = torch.tensor([1.0, 1.0, 1.0, 0.0, -0.0, nan, 2.0, -2.0])
+    wide[-1, -1, -1, :8] = torch.tensor([-0.0, 0.0, nan, inf, -inf, 3.0, -inf, -1.0])
+    real, pointers = tconv.launch, []
+
+    def spy(name, device, *args):
+        pointers.append(args[1])
+        return real(name, device, *args)
+
+    monkeypatch.setattr(tconv, "launch", spy)
+    bits = BITS[dtype]
+    for dy in (wide[:, 2:], wide[:, 2:].contiguous()):
+        for relu in (True, False):
+            pointers.clear()
+            got, db = relu_bias_bwd(y, dy, relu)
+            assert pointers == [dy.data_ptr()]
+            want, _ = relu_bias_bwd_plain(y, dy, relu)
+            assert got.dtype == dtype and got.is_contiguous()
+            assert torch.equal(got.view(bits), want.view(bits)), (dy.is_contiguous(), relu)
+            db64 = want.double().sum((0, 2, 3))
+            finite = db64.isfinite()
+            assert torch.equal(db.isfinite(), finite) and finite[:-1].all()
+            assert rel_err(db[finite], db64[finite]) <= 1e-5
+            got2, db2 = relu_bias_bwd(y, dy, relu)
+            assert torch.equal(got2.view(bits), got.view(bits))
+            assert torch.equal(db2.view(torch.int32), db.view(torch.int32))
+
+
 def test_conv3x3_f32_blocks_fit_the_shared_memory(cuda):
     """The float32 kernel's block at each UNet stage shape, as the forward
     (Co outputs) and as dx (Ci outputs), fits the 227 KB a block may have."""
@@ -548,10 +601,12 @@ def test_train_step_runs_the_kernels(cuda, dtype):
     counts = launch_counts()
     assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == tuple(
         2 * n for n in want)
+    assert counts["relu_bias_bwd"] == 2 * n_conv  # one a conv backward
     reset_launch_counts()
     trainer.train_step(state, batch)
     counts = launch_counts()
     assert (counts["conv3x3"], counts["conv3x3_dx"], counts["conv3x3_dk"]) == want
+    assert counts["relu_bias_bwd"] == n_conv
     assert counts["nn_stripe"] + counts["nn_argmin"] >= 3
     ref = trainer.init_state(2)
     with plain_versions():
@@ -567,6 +622,28 @@ def test_train_step_runs_the_kernels(cuda, dtype):
         # head computed in float32, ROADMAP §3 fault 4); chip_smoke.py's e2e
         # and implicit phases compare it at full width.
         assert abs(loss.item() - loss_p.item()) <= 2e-2 * abs(loss_p.item())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet_train_step_masks_each_conv_once(cuda, dtype):
+    """The full-width UNet (8 ... 256, 32 convs) in a replayed train step:
+    one launch of the mask and bias gradient a conv backward."""
+    spec = SyntheticSpec(n_scan=1024, n_map=4096, polar_shape=(128, 512),
+                         cart_pixel_width=128, res=0.25, cart_resolution=0.5,
+                         max_range=30.0, min_range=2.0, pos_std=0.4, rot_std=0.15)
+    cfg = Config(model=ModelConfig(cart_pixel_width=128, cart_resolution=0.5, res=0.25,
+                                   polar_shape=(128, 512), max_iter=3, dtype=dtype))
+    trainer = Trainer(cfg, cuda)
+    batch = synthetic_batch(5, 2, spec, device=cuda)
+    state = trainer.init_state(2)
+    n_conv = len(conv3x3_shapes(cfg.model.enc_channels, 128))
+    assert n_conv == 32
+    trainer.train_step(state, batch)
+    reset_launch_counts()
+    _, loss, _, _ = trainer.train_step(state, batch)
+    counts = launch_counts()
+    assert counts["relu_bias_bwd"] == counts["conv3x3_dk"] == n_conv
+    assert torch.isfinite(loss)
 
 
 def small_trainer(cuda, **model):

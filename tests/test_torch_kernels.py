@@ -32,6 +32,7 @@ from mm_masking_tpu_torch.ops.kernels.conv2d import (
     conv3x3,
     conv3x3_dk_plain,
     pack_weight_bf16,
+    relu_bias_bwd_plain,
 )
 from mm_masking_tpu_torch.ops.kernels.conv_probes import VARIANTS
 from test_torch_gpu import mixed_stripe_case
@@ -480,6 +481,151 @@ def test_backward_hands_the_kernels_contiguous_tensors(monkeypatch):
     assert len(seen) == 4 and all(seen)
 
 
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_gradients_of_a_channel_slice_match_pallas_vjp(relu):
+    """As test_conv3x3_gradients_match_pallas_vjp, with the cotangent a
+    channel slice of a wider tensor, as a decoder conv gets it from a cat:
+    the mask and the bias gradient read it where it lies."""
+    B, H, W, Ci, Co = 2, 16, 40, 3, 8
+    x, k, b = conv_inputs(8, B, H, W, Ci, Co)
+    wide = (np.random.default_rng(9).standard_normal((B, Co + 5, H, W)) * 0.02
+            ).astype(np.float32)
+    cot = wide[:, 5:]
+
+    def loss(xj, kj, bj):
+        y = conv3x3_nhcw(xj.transpose(0, 2, 1, 3), kj, bj, relu)
+        return jnp.sum(y * jnp.asarray(cot).transpose(0, 2, 1, 3))
+
+    gx, gk, gb = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    y = conv3x3(xt, wt, bt, relu)
+    tcot = torch.from_numpy(wide)[:, 5:]
+    assert not tcot.is_contiguous()
+    tx, tw, tb = torch.autograd.grad(y, (xt, wt, bt), tcot)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(gx), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tw.permute(2, 3, 1, 0).numpy(), np.asarray(gk), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tb.numpy(), np.asarray(gb), rtol=0, atol=1e-5)
+
+
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def mask_inputs(dtype, sliced):
+    """y and dy (2, 5, 6, 8) in ``dtype``, random but for one row of each
+    that pairs zeros of both signs, NaN and infinities with y above, at and
+    below zero; dy a channel slice of a wider tensor where ``sliced``."""
+    rng = np.random.default_rng(26)
+    y = rng.standard_normal((2, 5, 6, 8)).astype(np.float32)
+    dy = rng.standard_normal((2, 8, 6, 8)).astype(np.float32)
+    y[1, 2, 3] = [1.0, 1.0, 1.0, 0.0, -0.0, np.nan, 2.0, -2.0]
+    dy[1, 5, 3] = [-0.0, 0.0, np.nan, np.inf, -np.inf, 3.0, -np.inf, -1.0]
+    wide = torch.from_numpy(dy).to(dtype)
+    return torch.from_numpy(y).to(dtype), wide[:, 3:] if sliced else wide[:, 3:].contiguous()
+
+
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu_bias_bwd_plain_is_the_masked_cotangent_and_its_sum(dtype, relu, sliced):
+    """The plain mask and bias gradient give, bit for bit, the two
+    expressions the conv backward runs on the CPU: dy·(y > 0) in dy's type,
+    made contiguous, and its float32 sum over (B, H, W); signed zeros, NaN
+    and infinities come out of the multiply as numpy's, on a contiguous dy
+    and on a channel slice."""
+    y, dy = mask_inputs(dtype, sliced)
+    assert dy.is_contiguous() != sliced
+    got, db = relu_bias_bwd_plain(y, dy, relu)
+    want = (dy * (y > 0).to(dy.dtype) if relu else dy).contiguous()
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got.view(BITS[dtype]), want.view(BITS[dtype]))
+    assert db.dtype == torch.float32
+    assert torch.equal(db.view(torch.int32), want.float().sum((0, 2, 3)).view(torch.int32))
+    yn, dn = y.float().numpy(), dy.float().numpy()
+    with np.errstate(invalid="ignore"):
+        expect = dn * (yn > 0).astype(np.float32) if relu else dn
+    np.testing.assert_array_equal(got.float().numpy(), expect)
+    finite = ~np.isnan(expect)
+    assert (np.signbit(got.float().numpy())[finite] == np.signbit(expect)[finite]).all()
+    if relu:
+        row = got[1, 2, 3].float()
+        assert row[0].item() == 0 and np.signbit(row[0].item())  # -0 · 1
+        assert row[3:5].isnan().all()  # inf · 0, -inf · 0
+        assert row[5].item() == 0 and not np.signbit(row[5].item())  # 3 · (NaN > 0)
+        assert row[7].item() == 0 and np.signbit(row[7].item())  # -1 · 0
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_bias_gradient_is_the_float32_sum_of_the_masked_cotangent(dtype, relu):
+    """The conv's bias gradient on the CPU, bit for bit: the cotangent (a
+    channel slice of a wider tensor) masked by y > 0 under a fused ReLU,
+    summed over (B, H, W) in float32 and rounded once to the bias's type."""
+    x, k, b = conv_inputs(10, 2, 8, 12, 3, 4)
+    xt = torch.from_numpy(x).to(dtype)
+    wt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).to(dtype).requires_grad_(True)
+    bt = torch.from_numpy(b).to(dtype).requires_grad_(True)
+    y = conv3x3(xt, wt, bt, relu)
+    wide = torch.from_numpy(np.random.default_rng(11).standard_normal((2, 7, 8, 12)).astype(
+        np.float32)).to(dtype)
+    cot = wide[:, 3:]
+    (gb,) = torch.autograd.grad(y, (bt,), cot)
+    masked = cot * (y.detach() > 0).to(dtype) if relu else cot
+    want = masked.contiguous().float().sum((0, 2, 3)).to(dtype)
+    assert gb.dtype == dtype and torch.equal(gb, want)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channel-slice", "expanded"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relu_bias_bwd_routes_each_precision_to_its_entry(monkeypatch, dtype, relu, layout):
+    """On the card the mask and bias gradient take float32 and bfloat16 to
+    their entries of relu_bias_bwd.cu, with the scratch its host function
+    sizes. A dy whose planes are contiguous (a channel slice included) is
+    handed over in place with its batch stride, any other is copied first;
+    dy_m comes back contiguous, written by the kernel under ReLU and dy
+    itself (contiguous) without."""
+    from mm_masking_tpu_torch.ops.kernels import conv2d
+
+    calls = []
+
+    def record(name, result):
+        return staticmethod(lambda *args: calls.append((name, args)) or result)
+
+    Library = type("Library", (), {
+        "mm_relu_bias_bwd_slabs": record("mm_relu_bias_bwd_slabs", 3),
+        **{name: record(name, 0) for name in ("mm_relu_bias_bwd_f32", "mm_relu_bias_bwd_bf16")},
+    })
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(conv2d, "library", Library)
+    monkeypatch.setattr(conv2d, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=7))
+    y = torch.ones((2, 4, 5, 6), dtype=dtype)
+    dy = {"contiguous": torch.ones((2, 4, 5, 6), dtype=dtype),
+          "channel-slice": torch.ones((2, 7, 5, 6), dtype=dtype)[:, 3:],
+          "expanded": torch.ones((1, 4, 5, 1), dtype=dtype).expand(2, 4, 5, 6)}[layout]
+    reset_launch_counts()
+    dy_m, db = conv2d.relu_bias_bwd(y, dy, relu)
+    assert launch_counts()["relu_bias_bwd"] == 1
+    reset_launch_counts()
+    (sized, size_args), (entry, args) = calls
+    assert sized == "mm_relu_bias_bwd_slabs" and size_args == (2, 4, 30)
+    assert entry == ("mm_relu_bias_bwd_bf16" if dtype == torch.bfloat16 else
+                     "mm_relu_bias_bwd_f32")
+    assert args[0] == y.data_ptr()
+    assert (args[1] == dy.data_ptr()) == (layout != "expanded")
+    assert args[2] == (dy_m.data_ptr() if relu else None)
+    batch_stride = 7 * 30 if layout == "channel-slice" else 4 * 30
+    assert args[5:] == (2, 4, 30, batch_stride, 3, int(relu), 7)
+    assert db.shape == (4,) and db.dtype == torch.float32
+    assert dy_m.shape == y.shape and dy_m.dtype == dtype and dy_m.is_contiguous()
+    if not relu:
+        assert torch.equal(dy_m, dy) and (dy_m is dy) == (layout == "contiguous")
+
+
 def scene_points(seed, B, N, M):
     rng = np.random.default_rng(seed)
     p = rng.uniform(-30, 30, (B, N, 3)).astype(np.float32)
@@ -784,8 +930,8 @@ def test_stripe_dispatcher_matches_dense_within_trim(refresh):
     idx, d2 = tnn.nn_argmin_stripe_presorted(p, q_s, key_s, use_x, trim, window=512,
                                              tn=64, refresh=gate)
     counts = launch_counts()  # CPU: no kernel runs
-    assert set(counts) == {"conv3x3", "conv3x3_dx", "conv3x3_dk", "nn_stripe", "nn_argmin",
-                           "conv3x3_nhcw", "conv3x3_nhcw_v2", "conv3x3_flat",
+    assert set(counts) == {"conv3x3", "conv3x3_dx", "conv3x3_dk", "relu_bias_bwd",
+                           "nn_stripe", "nn_argmin", "conv3x3_nhcw", "conv3x3_nhcw_v2", "conv3x3_flat",
                            *(f"conv3x3_nhcw_run:{v}" for v in VARIANTS), "resize_bwd",
                            "bilinear_points_bwd"}
     assert not any(counts.values())
